@@ -1,0 +1,39 @@
+"""Device and dtype resolution for the PyTorch port.
+
+Entry points take an explicit ``device`` and ``dtype``.  The default device
+is ``cuda``: with no card, resolution raises instead of quietly picking the
+CPU (tests and CPU users pass ``device="cpu"``).  The default dtype follows
+the device, as the JAX package does per backend: float32 on CUDA (the
+throughput path), float64 on the CPU (the parity path against the float64
+reference).
+"""
+
+from __future__ import annotations
+
+import torch
+
+# TF32 keeps ~10 mantissa bits.  The spectrum's (B, 44) @ (44, 176) basis
+# products and the 8x8 last-interval solve are exactly the float32 products
+# TF32 would truncate: the same chains went wrong on the TPU under one-pass
+# bf16 matmuls (max |dllh| 6-22 against the f64 reference, enough to flip
+# the optimiser's argmax).  Pin both switches to full float32.
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` means CUDA; asking for CUDA without a card raises."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA device requested but torch.cuda.is_available() is False; "
+            "pass device='cpu' to run on the CPU"
+        )
+    return dev
+
+
+def resolve_dtype(device: torch.device, dtype=None) -> torch.dtype:
+    """float32 on CUDA, float64 on the CPU, unless given."""
+    if dtype is not None:
+        return dtype
+    return torch.float32 if device.type == "cuda" else torch.float64

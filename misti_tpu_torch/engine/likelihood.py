@@ -1,0 +1,350 @@
+"""Batched likelihood: correction sweep -> JSFS spectrum -> multinomial llh.
+
+The reference evaluates one likelihood with two sequential Python loops over
+time intervals (MigrationInference.py:305-378 `CorrectLambdas` and :467-506
+`JAFSpectrum`).  Here every function is batch-first over candidate parameter
+vectors ``params (B, n_par)``: the pre-split correction is one fused sweep
+(kernels/correction_fused.py: a hand-written CUDA kernel on the card, its
+plain torch version on the CPU), the post-split fit and the spectrum are
+torch ops over (B, ...) tensors with a Python loop over intervals.
+
+Failure semantics follow the reference: negative parameters or a failed
+lambda correction (any corrected rate <= 0 pre-split) yield -inf
+(MigrationInference.py:566-578) via a validity mask instead of early returns.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import numpy as np
+import torch
+
+from ..config import resolve_device, resolve_dtype
+from ..kernels.correction import fit_single_pop
+from ..kernels.correction_fused import fused_correction
+from ..kernels.expm import expm_action_pair, substep_counts
+from ..model import statespace as ss
+from .spec import ModelSpec
+
+_POST_OUTERS = 6  # Jacobi rounds of the ECT post-split fit
+
+
+def _pulse_update_3state(p, rate, pop: int):
+    """Closed-form pulse update of the (B, 2, 3) correction state
+    (MigrationInference.py:315-323).  Identity at rate == 0."""
+    q = 1 - pop
+    rate = rate[:, None]
+    cp, cq, c2 = p[..., pop], p[..., q], p[..., 2]
+    cols = [None, None, None]
+    cols[pop] = cp * (1.0 - rate) ** 2
+    cols[q] = cp * rate**2 + cq + c2 * rate
+    cols[2] = cp * 2.0 * (1.0 - rate) * rate + c2 * (1.0 - rate)
+    return torch.stack(cols, dim=-1)
+
+
+@dataclasses.dataclass
+class Likelihood:
+    """Likelihood functions for one ModelSpec on one device and dtype."""
+
+    spec: ModelSpec
+    device: torch.device
+    dtype: torch.dtype
+    llh: Callable  # params (n_par,) -> () llh (-inf on failure)
+    llh_aux: Callable  # params (n_par,) -> (llh, dict(jafs, lc, pr, valid, ...))
+    llh_batch: Callable  # params (B, n_par) -> (B,) llh
+    llh_data: Callable  # (params (B, n_par), data7 (B, 7)) -> (B,) llh
+    llh_flags: Callable  # params (n_par,) -> (llh, [corr_called, corr_failed])
+    # the stages, batch-first, for timing them apart
+    map_params: Callable  # params (B, n_par) -> (mi, pu) (B, numT, 2)
+    correct: Callable  # (mi, pu) -> (lc (B, numT, 2), pr, valid (B,))
+    spectrum: Callable  # (lc, mi, pu) -> unnormalised jafs (B, 7)
+    sweep_tables: tuple = ()  # (lh (s, 2), times (s,)) of the fused sweep
+    sweep_opts: dict = dataclasses.field(default_factory=dict)  # its options
+
+
+def build_likelihood(spec: ModelSpec, *, device=None, dtype=None) -> Likelihood:
+    """Build the batched likelihood for ``spec``.
+
+    ``device`` defaults to CUDA and raises when there is no card; ``dtype``
+    defaults to float32 on CUDA and float64 on the CPU.
+    """
+    dev = resolve_device(device)
+    dt = resolve_dtype(dev, dtype)
+    s = spec.splitT
+    # statically migration-free: no fixed bands and no optimised rates
+    static_no_mig = (len(spec.opt_mi) == 0) and bool(np.all(spec.mi_base == 0))
+    has_pulse = bool(spec.opt_pu) or bool(np.any(np.asarray(spec.pu_base)[:s] != 0))
+    # the sweep's variant; its Jacobi/LM budgets keep their defaults (2/8/2)
+    sweep_opts = {"cpfit": spec.cpfit, "mixture_th": float(spec.mixture_th),
+                  "static_no_mig": static_no_mig, "has_pulse": has_pulse}
+
+    def tens(a):
+        return torch.as_tensor(np.asarray(a, dtype=float), dtype=dt, device=dev)
+
+    b2 = ss.two_pop_basis()
+    b1 = ss.one_pop_basis()
+    numT = spec.numT
+    sd = spec.sample_date
+    n_post = numT - 1 - s
+
+    times = np.asarray(spec.times, dtype=float)  # (numT-1,)
+    lh = np.asarray(spec.lh, dtype=float)  # (numT, 2)
+    pre_T = times[:s]
+    post_T = times[s:numT - 1]
+    # genome-2 categories are zeroed before the ancient sample exists
+    # (MigrationInference.py:503-505)
+    catmask = np.ones((s, 7))
+    catmask[:sd, 2:] = 0.0
+
+    n_mi = len(spec.opt_mi)
+    n_pu = len(spec.opt_pu)
+    n_par = n_mi + n_pu
+    mi_any = spec.mi_masks.sum(0) if n_mi else np.zeros((numT, 2))
+    pu_any = spec.pu_masks.sum(0) if n_pu else np.zeros((numT, 2))
+    # pulse sites: P(0) is the identity, so statically zero pulses are skipped
+    pulse_site = (np.asarray(spec.pu_base) != 0) | (pu_any != 0)  # (numT, 2)
+
+    mi_base, pu_base = tens(spec.mi_base), tens(spec.pu_base)
+    mi_keep, pu_keep = tens(1.0 - mi_any), tens(1.0 - pu_any)
+    mi_masks, pu_masks = tens(spec.mi_masks), tens(spec.pu_masks)
+    lh_t = tens(lh)
+    pre_T_t, post_T_t = tens(pre_T), tens(post_T)
+    catmask_t = tens(catmask)
+    smooth_w = tens(spec.smooth_w) if (spec.smooth and s > 0) else None
+
+    def map_params(params):
+        """MapParameters (MigrationInference.py:291-298): overwrite the
+        optimised regions of the fixed-rate tables with the parameters."""
+        B = params.shape[0]
+        mi = mi_base.expand(B, numT, 2)
+        pu = pu_base.expand(B, numT, 2)
+        if n_mi:
+            mi = mi * mi_keep + torch.einsum("bk,ktc->btc", params[:, :n_mi], mi_masks)
+        if n_pu:
+            pu = pu * pu_keep + torch.einsum("bk,ktc->btc", params[:, n_mi:], pu_masks)
+        return mi, pu
+
+    # -- correction (CorrectLambdas, MigrationInference.py:305-378) ---------
+
+    def correct(mi, pu):
+        B = mi.shape[0]
+        p0 = torch.tensor([[1.0, 0.0, 0.0], [0.0, 1.0, 0.0]], dtype=dt, device=dev)
+        p0b = p0.expand(B, 2, 3)
+        lh_pre = lh_t[:s].expand(B, s, 2)
+        if not spec.correct or s == 0:
+            # trueEPS: rates pass through; p0 evolves only by pulses
+            p = p0b
+            pr_tail = []
+            for t in range(s):
+                p = _pulse_update_3state(p, pu[:, t, 0], 0)
+                p = _pulse_update_3state(p, pu[:, t, 1], 1)
+                pr_tail.append(p.transpose(1, 2))
+            lc_pre = lh_pre
+            pr = torch.stack([p0b.transpose(1, 2), *pr_tail], dim=1)
+            nc = p.sum(-1)
+            valid = torch.ones(B, dtype=torch.bool, device=dev)
+        else:
+            lc_pre, p_after = fused_correction(
+                mi[:, :s], pu[:, :s], lh_t[:s], pre_T_t, **sweep_opts)
+            pr = torch.cat([p0b.transpose(1, 2)[:, None], p_after.transpose(2, 3)], dim=1)
+            nc = p_after[:, -1].sum(-1)
+            valid = (lc_pre > 0).all(-1).all(-1)
+
+        # post-split single-population fit (:355-370)
+        lh_post = lh_t[s:numT - 1]
+        if spec.cpfit or n_post == 0:
+            lc_post = []
+            for t in range(n_post):
+                T_t = post_T_t[t]
+                if spec.cpfit:
+                    # deviation form of :366: form pnc - 1 from expm1 masses
+                    # and take -log1p (f32-stable; the weight is O(1))
+                    ed = torch.exp(nc[:, 1] - nc[:, 0])
+                    dpnc = -(
+                        -torch.expm1(-T_t * lh_post[t, 0])
+                        + ed * -torch.expm1(-T_t * lh_post[t, 1])
+                    ) / (1.0 + ed)
+                    lam = -torch.log1p(dpnc) / (T_t if post_T[t] != 0 else 1.0)
+                if post_T[t] == 0:
+                    lam = torch.ones_like(nc[:, 0])  # reference :357-359
+                lc_t = torch.stack([lam, lam], dim=-1)
+                nc = nc - T_t * lc_t
+                lc_post.append(lc_t)
+            lc_post = (torch.stack(lc_post, dim=1) if lc_post
+                       else torch.zeros((B, 0, 2), dtype=dt, device=dev))
+            nc_fin = nc
+        else:
+            # Jacobi fixed point: given lc guesses, every nc is one cumsum
+            # and every interval's fit runs in one batched call
+            t_safe = torch.where(post_T_t == 0, torch.ones_like(post_T_t), post_T_t)
+            lc_post = lh_post.mean(dim=1, keepdim=True).expand(n_post, 2).expand(B, n_post, 2)
+            for _ in range(_POST_OUTERS):
+                dec = post_T_t[:, None] * lc_post  # (B, n_post, 2)
+                csum = torch.cumsum(dec, dim=1)
+                nc_t = nc[:, None, :] - torch.cat(
+                    [torch.zeros_like(csum[:, :1]), csum[:, :-1]], dim=1)
+                # shift by the per-interval max: ratio-invariant, immune to
+                # f32 exp underflow of the cumulative log no-coal mass
+                w = torch.exp(nc_t - nc_t.max(dim=-1, keepdim=True).values)
+                lam = fit_single_pop(lh_post.expand(B, n_post, 2), t_safe, w)
+                lam = torch.where(post_T_t == 0, torch.ones_like(lam), lam)
+                lc_post = torch.stack([lam, lam], dim=-1)
+            nc_fin = nc - (post_T_t[:, None] * lc_post).sum(1)
+
+        # last (infinite) interval: weighted harmonic mean (:371-376),
+        # max-shifted exp (the mean is invariant to the common factor)
+        m_nc = torch.maximum(nc_fin[:, 0], nc_fin[:, 1])
+        pr0 = torch.exp(nc_fin[:, 0] - m_nc)
+        pr1 = torch.exp(nc_fin[:, 1] - m_nc)
+        lam_last = (pr0 + pr1) / (pr0 / lh_t[numT - 1, 0] + pr1 / lh_t[numT - 1, 1])
+        lc_last = torch.stack([lam_last, lam_last], dim=-1)[:, None]
+
+        if smooth_w is not None:
+            lc_pre = torch.stack(
+                [lc_pre[..., 0] @ smooth_w[0].T, lc_pre[..., 1] @ smooth_w[1].T], dim=-1)
+        lc = torch.cat([lc_pre, lc_post, lc_last], dim=1)  # (B, numT, 2)
+        return lc, pr, valid
+
+    # -- spectrum (JAFSpectrum, MigrationInference.py:467-506) --------------
+    #
+    # Only the action of E and N1 on the carried state is needed, so each
+    # interval is Taylor sub-stepping with (B, 44) @ (44, 176) basis products
+    # (kernels/expm.py `expm_action_pair`).
+
+    ancient = tens(b2.ancient)
+    collapse = tens(b2.collapse)
+    jsfs2 = tens(b2.jsfs)  # (44, 7)
+    jsfs1 = tens(b1.jsfs)  # (8, 7)
+    k2 = tens(np.concatenate(
+        [b2.coal[0].T, b2.coal[1].T, b2.migr[0].T, b2.migr[1].T], axis=1))  # (44, 176)
+    norms2 = tens(np.abs(np.stack(
+        [b2.coal[0], b2.coal[1], b2.migr[0], b2.migr[1]])).sum(axis=1).max(axis=1))
+    k1 = tens(b1.coal.T)  # (8, 8)
+    norms1 = tens(np.abs(b1.coal).sum(axis=0).max(keepdims=True))
+
+    def spectrum(lc, mi, pu):
+        B = lc.shape[0]
+        p0 = torch.zeros((B, 44), dtype=dt, device=dev)
+        p0[:, 2] = 1.0
+        coeffs_pre = torch.cat([lc[:, :s], mi[:, :s]], dim=-1)  # (B, s, 4)
+        coeffs_post = lc[:, s:numT - 1, :1]  # (B, n_post, 1)
+        # sub-step loop bounds of every interval in one host read
+        m_pre, _ = substep_counts(coeffs_pre, norms2, pre_T_t[None])
+        m_post, _ = substep_counts(coeffs_post, norms1, post_T_t[None])
+        loops = torch.cat([m_pre.amax(0), m_post.amax(0)]).to(torch.int64).tolist() \
+            if B else [0] * (numT - 1)
+
+        jafs_pre = []
+        for t in range(s):
+            if t == sd:
+                p0 = p0 @ ancient.T
+            for pop in (0, 1):
+                if pulse_site[t, pop]:
+                    p0 = (ss.pulse_operator(pu[:, t, pop], pop, b2) @ p0[..., None])[..., 0]
+            p0, n1p = expm_action_pair(k2, coeffs_pre[:, t], norms2, pre_T_t[t], p0,
+                                       n_loop=loops[t])
+            jafs_pre.append(catmask_t[t] * (n1p @ jsfs2))
+
+        # ancient rebase exactly at the split happens before the collapse
+        if sd == s:
+            p0 = p0 @ ancient.T
+        p0 = p0 @ collapse.T  # (B, 8)
+
+        jafs_post = []
+        for t in range(n_post):
+            p0, n1p = expm_action_pair(k1, coeffs_post[:, t], norms1, post_T_t[t], p0,
+                                       n_loop=loops[s + t])
+            jafs_post.append(n1p @ jsfs1)
+
+        # last interval, T = infinity: occupancy = -M^{-1} P0 (:530-540)
+        m_last = ss.one_pop_matrix(lc[:, numT - 1, 0], b1)
+        occ_last, _ = torch.linalg.solve_ex(m_last, -p0)
+        jafs = occ_last @ jsfs1
+        if jafs_post:
+            jafs = torch.stack(jafs_post).sum(0) + jafs
+        if jafs_pre:
+            jafs = torch.stack(jafs_pre).sum(0) + jafs
+        return jafs
+
+    # -- full likelihood ------------------------------------------------------
+
+    def _core(params, data, llh_const):
+        nonneg = (params >= 0).all(-1)
+        mi, pu = map_params(params)
+        lc, pr, valid_corr = correct(mi, pu)
+        jafs_raw = spectrum(lc, mi, pu)
+        norm = jafs_raw.sum(-1)
+        jafs = jafs_raw / norm[:, None]
+        if spec.unfolded:
+            cats, dat = jafs, data
+        else:
+            # folded pairing (0,6) (1,5) (2,4) 3 (:600-605)
+            def fold(x):
+                return torch.stack([x[..., 0] + x[..., 6], x[..., 1] + x[..., 5],
+                                    x[..., 2] + x[..., 4], x[..., 3]], dim=-1)
+
+            cats, dat = fold(jafs), fold(data)
+        pos = (cats > 0).all(-1) & torch.isfinite(norm) & (norm > 0)
+        safe = torch.where(cats > 0, cats, torch.ones_like(cats))
+        llh = llh_const + (dat * torch.log(safe)).sum(-1)
+        valid = nonneg & valid_corr & pos
+        llh = torch.where(valid, llh, torch.full_like(llh, -float("inf")))
+        # Report() counters (MigrationInference.py:306,336,347,567): "called"
+        # once per eval past the negative-rate guard, "failed" when the sweep
+        # ran and left a rate <= 0
+        return llh, {"jafs": jafs, "lc": lc, "pr": pr, "valid": valid,
+                     "mi": mi, "pu": pu, "corr_called": nonneg,
+                     "corr_failed": nonneg & ~valid_corr}
+
+    def as_params(params):
+        """(B, n_par) tensor on the device; a single vector becomes B = 1."""
+        if not torch.is_tensor(params):
+            params = np.asarray(params, dtype=float)
+        p = torch.as_tensor(params).to(device=dev, dtype=dt)
+        return p.reshape(1, n_par) if p.dim() <= 1 else p.reshape(p.shape[0], n_par)
+
+    data_t = tens(spec.data_jafs)
+
+    def llh_aux(params):
+        llh, aux = _core(as_params(params), data_t, spec.llh_const)
+        return llh[0], {k: v[0] for k, v in aux.items()}
+
+    def llh_only(params):
+        return llh_aux(params)[0]
+
+    def llh_batch(params):
+        return _core(as_params(params), data_t, spec.llh_const)[0]
+
+    def llh_data(params, data7):
+        """Likelihood with the 7-category data spectrum as an argument (for
+        bootstrap replicates); the multinomial constant is recomputed."""
+        single = (params.dim() if torch.is_tensor(params) else np.ndim(params)) <= 1
+        p = as_params(params)
+        d = torch.as_tensor(np.asarray(data7, dtype=float) if not torch.is_tensor(data7)
+                            else data7).to(device=dev, dtype=dt)
+        d = d.expand(p.shape[0], 7)
+        n = d.sum(-1)
+        if spec.unfolded:
+            const = torch.lgamma(n + 1) - torch.lgamma(d + 1).sum(-1)
+        else:
+            pairs = torch.stack([d[:, 0] + d[:, 6], d[:, 1] + d[:, 5],
+                                 d[:, 2] + d[:, 4], d[:, 3]], dim=-1)
+            const = torch.lgamma(n + 1) - torch.lgamma(pairs + 1).sum(-1)
+        llh = _core(p, d, const)[0]
+        return llh[0] if single else llh
+
+    def llh_flags(params):
+        """(llh, counter vector) for the optimiser's Report() accumulation."""
+        llh, aux = llh_aux(params)
+        flags = torch.stack([aux["corr_called"], aux["corr_failed"]])
+        return llh, flags.to(dt)
+
+    return Likelihood(
+        spec=spec, device=dev, dtype=dt, llh=llh_only, llh_aux=llh_aux,
+        llh_batch=llh_batch, llh_data=llh_data, llh_flags=llh_flags,
+        map_params=lambda params: map_params(as_params(params)),
+        correct=correct, spectrum=spectrum, sweep_tables=(lh_t[:s], pre_T_t),
+        sweep_opts=sweep_opts,
+    )

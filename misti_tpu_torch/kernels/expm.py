@@ -1,0 +1,126 @@
+"""Batched matrix exponentials and their actions for small CTMCs (torch).
+
+Only what the likelihood slice uses.  ``expm_action_pair`` is the spectrum
+sweep's hot spot: (E p0, N1 p0) by Taylor sub-stepping against a static
+stacked basis, so every matvec is one (B, n) @ (n, c*n) product.  ``expm``
+and ``expm_m1`` are fixed-structure scaling-and-squaring Taylor-18
+(Paterson-Stockmeyer) references for the tests.  All functions are
+batch-first: matrices (..., n, n), vectors (B, n).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+_THETA_TAYLOR = 1.0  # scale so ||A||_1 <= 1: Taylor-18 truncation ~ 2e-16
+_MAX_SQUARINGS = 30
+
+
+def _squarings(a: torch.Tensor, max_squarings: int):
+    """Per-matrix squaring count s and the scaled matrix a / 2^s."""
+    norm = torch.linalg.matrix_norm(a, ord=1)
+    s = torch.clamp(torch.ceil(torch.log2(norm / _THETA_TAYLOR)), min=0)
+    s = torch.where(torch.isfinite(norm) & (norm > 0), s, torch.zeros_like(s))
+    s = torch.clamp(s, max=max_squarings).to(torch.int64)
+    scale = torch.exp2(-s.to(a.dtype))
+    return s, a * scale[..., None, None]
+
+
+def _powers(b: torch.Tensor):
+    eye = torch.eye(b.shape[-1], dtype=b.dtype, device=b.device).expand_as(b)
+    p = [eye, b]
+    for _ in range(5):  # b^2 .. b^6
+        p.append(p[-1] @ b)
+    return p
+
+
+def _horner(p, coeffs):
+    """sum_k coeffs[k] b^k (k <= 18) in base b^6."""
+
+    def blk(k0):
+        out = coeffs[k0] * p[0]
+        for j in range(1, 6):
+            out = out + coeffs[k0 + j] * p[j]
+        return out
+
+    b6 = p[6]
+    return blk(0) + b6 @ (blk(6) + b6 @ (blk(12) + coeffs[18] * b6))
+
+
+def expm(a: torch.Tensor, max_squarings: int = _MAX_SQUARINGS) -> torch.Tensor:
+    """Matrix exponential of (batched) square matrices."""
+    s, b = _squarings(a, max_squarings)
+    e = _horner(_powers(b), [1.0 / math.factorial(k) for k in range(19)])
+    for i in range(int(s.max()) if s.numel() else 0):
+        e = torch.where((i < s)[..., None, None], e @ e, e)
+    return e
+
+
+def expm_m1(a: torch.Tensor, max_squarings: int = _MAX_SQUARINGS) -> torch.Tensor:
+    """Phi = e^A - I without cancellation: the series has no identity term
+    and doubling is Phi(2h) = Phi^2 + 2 Phi."""
+    s, b = _squarings(a, max_squarings)
+    phi = _horner(_powers(b), [0.0] + [1.0 / math.factorial(k) for k in range(1, 19)])
+    for i in range(int(s.max()) if s.numel() else 0):
+        phi = torch.where((i < s)[..., None, None], phi @ phi + 2.0 * phi, phi)
+    return phi
+
+
+def substep_counts(coeffs: torch.Tensor, basis_norms, t, theta: float = 2.0,
+                   max_substeps: int = 1024):
+    """(m, overflow) of `expm_action_pair` for coeffs (..., c): the Taylor
+    sub-step count per lane and the lanes past the cost cap (NaN too)."""
+    t = torch.as_tensor(t, dtype=coeffs.dtype, device=coeffs.device)
+    norms = torch.as_tensor(basis_norms, dtype=coeffs.dtype, device=coeffs.device)
+    nb = (coeffs.abs() * norms).sum(-1) * t
+    overflow = ~(nb <= theta * max_substeps)  # catches NaN coeffs too
+    nb = torch.where(overflow, torch.zeros_like(nb), nb)
+    m = torch.clamp(torch.ceil(nb / theta), min=1, max=max_substeps)
+    return m, overflow
+
+
+def expm_action_pair(kmat: torch.Tensor, coeffs: torch.Tensor, basis_norms,
+                     t, p0: torch.Tensor, theta: float = 2.0,
+                     degree: int = 20, max_substeps: int = 1024,
+                     n_loop: int | None = None):
+    """(E p0, N1 p0) for M = sum_c coeffs[:, c] * B_c without forming E or N1.
+
+    ``kmat`` = [B_0^T | ... | B_{c-1}^T] (n, c*n), ``coeffs`` (B, c), ``p0``
+    (B, n), ``t`` a scalar interval length.  Each lane covers the interval
+    in m = ceil(||M t||_1 / theta) sub-steps of the degree-``degree`` series
+    for (e^b, phi1(b)), b = M t / m.  The JAX version's per-lane while loop
+    is a loop to max(m) here, each lane masked by j < m.  Past
+    ``theta * max_substeps`` the lane is poisoned with NaN (the likelihood's
+    positivity mask turns it into llh = -inf).
+
+    ``n_loop`` is max(m) when the caller already knows it (one host read for
+    many intervals instead of one per call).
+    """
+    n = p0.shape[-1]
+    c = coeffs.shape[-1]
+    m, overflow = substep_counts(coeffs, basis_norms, t, theta, max_substeps)
+    if n_loop is None:
+        n_loop = int(m.max())
+    h = torch.as_tensor(t, dtype=p0.dtype, device=p0.device) / m  # (B,)
+    cs = coeffs * h[..., None]  # scaled rates: ||b||_1 <= theta
+
+    def matvec(v):
+        y = (v @ kmat).reshape(v.shape[:-1] + (c, n))
+        return (cs[..., None] * y).sum(-2)
+
+    p = p0
+    acc = torch.zeros_like(p0)
+    for j in range(n_loop):
+        term, ev, pv = p, p, p
+        for k in range(1, degree + 1):
+            term = matvec(term) / k
+            ev = ev + term
+            pv = pv + term / (k + 1)
+        live = (j < m)[..., None]
+        p = torch.where(live, ev, p)
+        acc = torch.where(live, acc + h[..., None] * pv, acc)
+    bad = torch.full((), float("nan"), dtype=p0.dtype, device=p0.device)
+    ov = overflow[..., None]
+    return torch.where(ov, bad, p), torch.where(ov, bad, acc)

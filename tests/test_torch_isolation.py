@@ -1,0 +1,68 @@
+"""The port stands alone: importing misti_tpu_torch and running a likelihood
+loads neither jax nor any module of misti_tpu, and its entry points default
+to the GPU (raising without one) instead of quietly picking the CPU.
+
+The import check runs in a subprocess: this test process has jax loaded
+already (tests/conftest.py).
+"""
+
+import os
+import re
+import subprocess
+import sys
+
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_CHILD = r"""
+import sys
+import numpy as np
+from misti_tpu_torch import build_likelihood, build_spec
+
+spec = build_spec([0.1, 0.2, 0.3, 0.4], [[1.0, 1.5], [0.8, 1.2], [1.1, 0.9],
+                  [1.0, 1.0], [1.2, 1.2]], [0, 50, 20, 40, 10, 8, 5, 3], 2,
+                  [[1, 0, 2, 0.2, 1]], [], cpfit=True, unfolded=True)
+llh = float(build_likelihood(spec, device="cpu").llh(np.array([0.2])))
+assert np.isfinite(llh), llh
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "misti_tpu"
+             or m.startswith("misti_tpu."))
+print("LOADED", bad)
+"""
+
+
+def test_port_imports_no_jax_and_no_misti_tpu():
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", _CHILD], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "LOADED []" in out.stdout, out.stdout
+
+
+def test_sources_name_no_jax_and_no_misti_tpu():
+    pattern = re.compile(
+        r"^\s*(import jax|from jax|import misti_tpu(\.|\s|,|$)|from misti_tpu(\.| import))",
+        re.MULTILINE)
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(os.path.join(REPO, "misti_tpu_torch")):
+        files += [os.path.join(root, n) for n in names if n.endswith((".py", ".cu"))]
+    assert len(files) > 10
+    for path in files:
+        with open(path) as f:
+            hit = pattern.search(f.read())
+        assert hit is None, f"{path}: {hit.group(0) if hit else ''}"
+
+
+def test_default_device_is_the_gpu():
+    from misti_tpu_torch import build_likelihood, build_spec
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device resolves")
+    spec = build_spec([0.1, 0.2], [[1.0, 1.5], [0.8, 1.2], [1.0, 1.0]],
+                      [0, 50, 20, 40, 10, 8, 5, 3], 1, correct=False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_likelihood(spec)
+    lik = build_likelihood(spec, device="cpu")
+    assert lik.dtype == torch.float64
