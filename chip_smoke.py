@@ -4,7 +4,9 @@
     python3 chip_smoke.py
 
 Phases, each fatal on failure:
-  1. build the CUDA kernels (one nvcc per library, all started together);
+  1. build the CUDA kernels (one nvcc per library, all started together) and
+     print each template instance's registers, spill bytes and resident
+     blocks per SM (an ``attrs`` line each; a float32 spill fails);
   2. each kernel variant against its plain torch version on the card, in
      float64 and float32, at s = 28 intervals and 512 lanes;
   3. the main path at full size -- the bench workload (64 intervals, split
@@ -88,6 +90,14 @@ def check_close(name, got, want, rtol, atol):
     return float(err.max()) if err.numel() else 0.0
 
 
+def lanes_off(got, want, rel=1e-6) -> int:
+    """Lanes whose lc differs from the plain version's by more than ``rel``
+    relative in some interval (where an LM accept flipped near a tie)."""
+    fin = want[:2].isfinite()
+    off = ((got[:2] - want[:2]).abs() > rel * want[:2].abs()) & fin
+    return int(off.any(0).any(0).sum())
+
+
 def kernel_inputs(rng, s, B, *, mig, pulse, per_lane, dtype, device):
     """(7, s, B) sweep input on the bench workload's grid: T, lh from the
     first s intervals; per-lane migration rates (1 in 8 lanes without);
@@ -124,6 +134,19 @@ def kernel_inputs(rng, s, B, *, mig, pulse, per_lane, dtype, device):
     return torch.tensor(inp, dtype=dtype, device=device).contiguous()
 
 
+def phase_attrs(cf, torch):
+    """Registers, spill bytes and resident blocks per SM of every template
+    instance at s = 28 (misti_correction_sweep_attrs), one line each; no
+    float32 instance may spill."""
+    for dtype in (torch.float32, torch.float64):
+        for cpfit in (True, False):
+            lib = f"correction_sweep_{str(dtype)[6:]}_{'cpfit' if cpfit else 'ect'}"
+            for a in cf.kernel_attrs(dtype, cpfit, KERNEL_S):
+                log("attrs " + json.dumps({"library": lib, "s": KERNEL_S, **a}))
+                require(dtype == torch.float64 or a["local_bytes"] == 0,
+                        f"{lib} {a}: a float32 instance uses local memory")
+
+
 def phase_kernels(cf, torch, dev):
     """Every variant of the sweep kernel against its plain version."""
     rng = np.random.default_rng(SEED)
@@ -156,6 +179,7 @@ def phase_kernels(cf, torch, dev):
             e_pa = check_close(tag + " p_after", got[2:], want[2:], rtol, atol)
             finite = float(torch.isfinite(got[:2]).float().mean())
             log(f"kernel-vs-plain {tag}: max|dlc|={e_lc:.3e} max|dp|={e_pa:.3e} "
+                f"lanes with lc off by > 1e-6 rel {lanes_off(got, want)}/{KERNEL_B} "
                 f"finite lc {finite:.3f} (rtol {rtol:g} atol {atol:g})")
     moved = cf.correction_sweep.launches - before
     require(moved == n, f"launch counter moved {moved}, expected {n}")
@@ -224,6 +248,7 @@ def phase_main_path(cf, torch, dev, bench):
                 "bound_by": "operations" if t_ops >= t_bytes else "bytes",
                 "library_ms": None,
             }
+            records[name]["share_of_bound"] = records[name]["bound_ms"] / k_ms
             line += (f"; kernel {k_ms:.3f} ms, plain {p_ms:.1f} ms, bound "
                      f"{records[name]['bound_ms']:.5f} ms ({ops:.3e} ops, {nbytes} bytes), "
                      f"work {json.dumps(work)}")
@@ -285,13 +310,14 @@ def main() -> int:
     t0 = time.perf_counter()
     report = cf.build(force=True)
     log(f"build: {time.perf_counter() - t0:.1f} s wall for {len(report)} libraries")
-    for lib, (secs, ptxas) in sorted(report.items()):
+    for lib, (secs, ptxas, _) in sorted(report.items()):
         lines = [ln.strip() for ln in ptxas.splitlines()
                  if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
         log(f"  {lib}: {secs:.1f} s")
         for ln in lines:
             log(f"    {ln}")
 
+    phase_attrs(cf, torch)
     phase_kernels(cf, torch, dev)
     kernels = phase_main_path(cf, torch, dev, bench)
     phase_real_inputs(torch, dev)

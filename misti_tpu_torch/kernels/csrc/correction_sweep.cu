@@ -22,15 +22,25 @@
 //     each round the 3x3 interval propagators go to shared memory once and
 //     the ordered product C_t = G_t ... G_0 is formed by the same
 //     Hillis-Steele doubling as the JAX kernel (log2(s) steps), so the
-//     association order, and with it the rounding, is the plain version's;
-//   * the LM Jacobian comes from one pass over dual numbers D2 {v, d0, d1}:
-//     the residual code is written once, generic over the scalar type, and
-//     instantiated on T for the chain and on D2<T> for the residuals (what
-//     jax.linearize shared in the TPU kernel);
+//     association order is the plain version's;
+//   * the LM Jacobian comes from dual numbers: the residual code is written
+//     once, generic over the scalar type, and instantiated on T for the
+//     chain and on Dual<T, N> for the residuals (what jax.linearize shared
+//     in the TPU kernel);
+//   * registers set the occupancy, so the live set is kept small: the
+//     degree-18 Taylor series is evaluated by Paterson-Stockmeyer in base
+//     b^3 (three powers live) with each block formed where the outer Horner
+//     step adds it, the Taylor tables are constants of type T, the ECT
+//     moments are formed one series at a time (E - I only where a doubling
+//     needs it), the residual's inputs and the interval's rates sit in
+//     shared memory, and float32 cpfit runs the residual once per Jacobian
+//     column, so that it fits 128 registers and two blocks per SM;
 //   * a thread leaves its LM loop once converged; every update after
 //     convergence was masked in the TPU kernel, so the numbers are the same.
-// Built with --fmad=false so each product and sum rounds as the plain torch
-// version's separate ops do.
+// Built with FMA contraction (nvcc's default): the products contract to
+// fused multiply-adds, so the kernel matches its plain version to a
+// tolerance (rtol 1e-4 / atol 1e-6 in float32, 1e-6 / 1e-9 in float64,
+// chip_smoke.py), not bitwise; the operation order is the plain version's.
 //
 // Layout: inp (7, s, B) = T, lh0, lh1, mi0, mi1, pu0, pu1; out (8, s, B) =
 // lc0, lc1, p_after (2 genomes x 3 states); the lane index is fastest.
@@ -51,6 +61,16 @@
 namespace {
 
 constexpr int kMaxThreads = 256;
+constexpr int kDeg = 18;             // Taylor degree of every series
+constexpr int kPS = 3;               // Paterson-Stockmeyer base
+// float32 cpfit fits two blocks of 224 threads per SM (128 registers) when
+// the residual runs once per Jacobian column; the other libraries are
+// faster with both columns in one pass at one block per SM (measured on the
+// H100, PERF.md)
+constexpr bool kLean = MISTI_CPFIT && sizeof(MISTI_T) == 4;
+constexpr int kTangents = kLean ? 1 : 2;  // tangent components per residual pass
+constexpr int kMinBlocks = kLean ? 2 : 1;  // resident blocks per SM the registers are set for
+static_assert(kDeg % kPS == 0, "the Paterson-Stockmeyer base must divide the degree");
 
 // ---------------------------------------------------------------- scalars
 
@@ -86,64 +106,129 @@ __device__ __forceinline__ T jclip(T x, T lo, T hi) { return jmin(jmax(x, lo), h
 
 // ------------------------------------------------------------ dual numbers
 
-// v + d0 e0 + d1 e1: value and the two forward-mode tangent components.
-template <typename T>
-struct D2 {
-  T v, d0, d1;
-  __device__ D2() {}
-  __device__ D2(T x) : v(x), d0(T(0)), d1(T(0)) {}
-  __device__ D2(T x, T a, T b) : v(x), d0(a), d1(b) {}
+// v + sum_i d[i] e_i: a value and N forward-mode tangent components.  Each
+// component is computed apart from the others, so one pass with N = 2 and
+// two passes with N = 1 give the same numbers.
+template <typename T, int N>
+struct Dual {
+  T v, d[N];
+  __device__ Dual() {}
+  __device__ Dual(T x) : v(x) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) d[i] = T(0);
+  }
 };
 
-template <typename T>
-__device__ __forceinline__ D2<T> operator+(const D2<T>& a, const D2<T>& b) {
-  return D2<T>(a.v + b.v, a.d0 + b.d0, a.d1 + b.d1);
+template <typename T, int N>
+__device__ __forceinline__ Dual<T, N> operator+(const Dual<T, N>& a, const Dual<T, N>& b) {
+  Dual<T, N> o;
+  o.v = a.v + b.v;
+#pragma unroll
+  for (int i = 0; i < N; ++i) o.d[i] = a.d[i] + b.d[i];
+  return o;
 }
-template <typename T>
-__device__ __forceinline__ D2<T> operator-(const D2<T>& a, const D2<T>& b) {
-  return D2<T>(a.v - b.v, a.d0 - b.d0, a.d1 - b.d1);
+template <typename T, int N>
+__device__ __forceinline__ Dual<T, N> operator-(const Dual<T, N>& a, const Dual<T, N>& b) {
+  Dual<T, N> o;
+  o.v = a.v - b.v;
+#pragma unroll
+  for (int i = 0; i < N; ++i) o.d[i] = a.d[i] - b.d[i];
+  return o;
 }
-template <typename T>
-__device__ __forceinline__ D2<T> operator-(const D2<T>& a) {
-  return D2<T>(-a.v, -a.d0, -a.d1);
+template <typename T, int N>
+__device__ __forceinline__ Dual<T, N> operator-(const Dual<T, N>& a) {
+  Dual<T, N> o;
+  o.v = -a.v;
+#pragma unroll
+  for (int i = 0; i < N; ++i) o.d[i] = -a.d[i];
+  return o;
 }
-template <typename T>
-__device__ __forceinline__ D2<T> operator*(const D2<T>& a, const D2<T>& b) {
-  return D2<T>(a.v * b.v, a.d0 * b.v + a.v * b.d0, a.d1 * b.v + a.v * b.d1);
+template <typename T, int N>
+__device__ __forceinline__ Dual<T, N> operator*(const Dual<T, N>& a, const Dual<T, N>& b) {
+  Dual<T, N> o;
+  o.v = a.v * b.v;
+#pragma unroll
+  for (int i = 0; i < N; ++i) o.d[i] = a.d[i] * b.v + a.v * b.d[i];
+  return o;
 }
-template <typename T>
-__device__ __forceinline__ D2<T> operator/(const D2<T>& a, const D2<T>& b) {
-  T q = a.v / b.v;
-  return D2<T>(q, (a.d0 - q * b.d0) / b.v, (a.d1 - q * b.d1) / b.v);
+template <typename T, int N>
+__device__ __forceinline__ Dual<T, N> operator/(const Dual<T, N>& a, const Dual<T, N>& b) {
+  Dual<T, N> o;
+  o.v = a.v / b.v;
+#pragma unroll
+  for (int i = 0; i < N; ++i) o.d[i] = (a.d[i] - o.v * b.d[i]) / b.v;
+  return o;
 }
-template <typename T>
-__device__ __forceinline__ D2<T> operator+(const D2<T>& a, T b) { return D2<T>(a.v + b, a.d0, a.d1); }
-template <typename T>
-__device__ __forceinline__ D2<T> operator+(T a, const D2<T>& b) { return D2<T>(a + b.v, b.d0, b.d1); }
-template <typename T>
-__device__ __forceinline__ D2<T> operator-(const D2<T>& a, T b) { return D2<T>(a.v - b, a.d0, a.d1); }
-template <typename T>
-__device__ __forceinline__ D2<T> operator-(T a, const D2<T>& b) { return D2<T>(a - b.v, -b.d0, -b.d1); }
-template <typename T>
-__device__ __forceinline__ D2<T> operator*(const D2<T>& a, T b) { return D2<T>(a.v * b, a.d0 * b, a.d1 * b); }
-template <typename T>
-__device__ __forceinline__ D2<T> operator*(T a, const D2<T>& b) { return D2<T>(a * b.v, a * b.d0, a * b.d1); }
-template <typename T>
-__device__ __forceinline__ D2<T> operator/(const D2<T>& a, T b) { return D2<T>(a.v / b, a.d0 / b, a.d1 / b); }
-template <typename T>
-__device__ __forceinline__ D2<T> operator/(T a, const D2<T>& b) {
-  T q = a / b.v;
-  return D2<T>(q, (-q * b.d0) / b.v, (-q * b.d1) / b.v);
+template <typename T, int N>
+__device__ __forceinline__ Dual<T, N> operator+(const Dual<T, N>& a, T b) {
+  Dual<T, N> o = a;
+  o.v = a.v + b;
+  return o;
+}
+template <typename T, int N>
+__device__ __forceinline__ Dual<T, N> operator+(T a, const Dual<T, N>& b) {
+  Dual<T, N> o = b;
+  o.v = a + b.v;
+  return o;
+}
+template <typename T, int N>
+__device__ __forceinline__ Dual<T, N> operator-(const Dual<T, N>& a, T b) {
+  Dual<T, N> o = a;
+  o.v = a.v - b;
+  return o;
+}
+template <typename T, int N>
+__device__ __forceinline__ Dual<T, N> operator-(T a, const Dual<T, N>& b) {
+  Dual<T, N> o = -b;
+  o.v = a - b.v;
+  return o;
+}
+template <typename T, int N>
+__device__ __forceinline__ Dual<T, N> operator*(const Dual<T, N>& a, T b) {
+  Dual<T, N> o;
+  o.v = a.v * b;
+#pragma unroll
+  for (int i = 0; i < N; ++i) o.d[i] = a.d[i] * b;
+  return o;
+}
+template <typename T, int N>
+__device__ __forceinline__ Dual<T, N> operator*(T a, const Dual<T, N>& b) {
+  Dual<T, N> o;
+  o.v = a * b.v;
+#pragma unroll
+  for (int i = 0; i < N; ++i) o.d[i] = a * b.d[i];
+  return o;
+}
+template <typename T, int N>
+__device__ __forceinline__ Dual<T, N> operator/(const Dual<T, N>& a, T b) {
+  Dual<T, N> o;
+  o.v = a.v / b;
+#pragma unroll
+  for (int i = 0; i < N; ++i) o.d[i] = a.d[i] / b;
+  return o;
+}
+template <typename T, int N>
+__device__ __forceinline__ Dual<T, N> operator/(T a, const Dual<T, N>& b) {
+  Dual<T, N> o;
+  o.v = a / b.v;
+#pragma unroll
+  for (int i = 0; i < N; ++i) o.d[i] = (-o.v * b.d[i]) / b.v;
+  return o;
 }
 
-template <typename T>
-__device__ __forceinline__ D2<T> m_exp(const D2<T>& a) {
-  T e = m_exp(a.v);
-  return D2<T>(e, e * a.d0, e * a.d1);
+template <typename T, int N>
+__device__ __forceinline__ Dual<T, N> m_exp(const Dual<T, N>& a) {
+  Dual<T, N> o;
+  o.v = m_exp(a.v);
+#pragma unroll
+  for (int i = 0; i < N; ++i) o.d[i] = o.v * a.d[i];
+  return o;
 }
 
 template <typename T> struct Val { __device__ static T get(T x) { return x; } };
-template <typename T> struct Val<D2<T>> { __device__ static T get(const D2<T>& x) { return x.v; } };
+template <typename T, int N> struct Val<Dual<T, N>> {
+  __device__ static T get(const Dual<T, N>& x) { return x.v; }
+};
 template <typename S> __device__ __forceinline__ auto val(const S& x) { return Val<S>::get(x); }
 
 // --------------------------------------------------------- 3x3 algebra
@@ -213,71 +298,86 @@ __device__ __forceinline__ M3<S> m3_scale(const M3<S>& a, T sc) {
   return o;
 }
 
-// Paterson-Stockmeyer powers b^1 .. b^6 (b^0 = I is implicit below)
+// Taylor coefficients, computed in double and rounded to T once, as the
+// plain version's python floats are: e^b, phi1(b) = (e^b - I)/b, E - I,
+// centred moment J.
+enum { SER_E = 0, SER_1 = 1, SER_PHI = 2, SER_J = 3 };
+
+__host__ __device__ constexpr double factorial(int k) { return k < 2 ? 1.0 : factorial(k - 1) * k; }
+
+struct Taylor {
+  MISTI_T c[4][kDeg + 1];
+};
+
+__host__ __device__ constexpr Taylor taylor_tables() {
+  Taylor t{};
+  for (int k = 0; k <= kDeg; ++k) {
+    t.c[SER_E][k] = MISTI_T(1.0 / factorial(k));
+    t.c[SER_1][k] = MISTI_T(1.0 / factorial(k + 1));
+    t.c[SER_PHI][k] = MISTI_T(k == 0 ? 0.0 : 1.0 / factorial(k));
+    t.c[SER_J][k] = MISTI_T(k == 0 ? 0.0 : k / (2.0 * factorial(k + 2)));
+  }
+  return t;
+}
+
+__constant__ Taylor kTaylor = taylor_tables();
+
+// Paterson-Stockmeyer powers b^1 .. b^kPS (b^0 = I is implicit below)
 template <typename S>
-__device__ __forceinline__ void ps_powers(const M3<S>& b, M3<S> (&p)[7]) {
+__device__ __forceinline__ void ps_powers(const M3<S>& b, M3<S> (&p)[kPS + 1]) {
   p[1] = b;
 #pragma unroll
-  for (int k = 2; k < 7; ++k) p[k] = m3_mul(p[k - 1], b);
+  for (int k = 2; k <= kPS; ++k) p[k] = m3_mul(p[k - 1], b);
 }
 
-// sum_k c[k] b^k (k <= 18) in base b^6
-template <typename S, typename T>
-__device__ __forceinline__ M3<S> ps_horner(const M3<S> (&p)[7], const double (&c)[19]) {
-  M3<S> eye = m3_eye<S, T>();
-  M3<S> blk[3];
+// entry k of the block sum_{j < kPS} c[k0 + j] b^j
+template <typename S, typename T, int SER>
+__device__ __forceinline__ S ps_block(const M3<S> (&p)[kPS + 1], int k0, int k) {
+  S o = T(kTaylor.c[SER][k0]) * S(T((k % 4) == 0 ? 1 : 0));
 #pragma unroll
-  for (int q = 0; q < 3; ++q) {
-    const int k0 = 6 * q;
+  for (int j = 1; j < kPS; ++j) o = o + T(kTaylor.c[SER][k0 + j]) * p[j].a[k];
+  return o;
+}
+
+// sum_k c[k] b^k (k <= kDeg) in base b^kPS, outer Horner from the top block;
+// each block is formed where its step adds it, so only the powers, the
+// running sum and one product are live
+template <typename S, typename T, int SER>
+__device__ __forceinline__ M3<S> ps_horner(const M3<S> (&p)[kPS + 1]) {
+  M3<S> acc;
 #pragma unroll
-    for (int k = 0; k < 9; ++k) {
-      S o = T(c[k0]) * eye.a[k];
+  for (int k = 0; k < 9; ++k)
+    acc.a[k] = ps_block<S, T, SER>(p, kDeg - kPS, k) + T(kTaylor.c[SER][kDeg]) * p[kPS].a[k];
 #pragma unroll
-      for (int j = 1; j < 6; ++j) o = o + T(c[k0 + j]) * p[j].a[k];
-      blk[q].a[k] = o;
-    }
+  for (int q = kDeg / kPS - 2; q >= 0; --q) {
+    M3<S> t = m3_mul(p[kPS], acc);
+#pragma unroll
+    for (int k = 0; k < 9; ++k) acc.a[k] = ps_block<S, T, SER>(p, kPS * q, k) + t.a[k];
   }
-  M3<S> b2;
-#pragma unroll
-  for (int k = 0; k < 9; ++k) b2.a[k] = blk[2].a[k] + T(c[18]) * p[6].a[k];
-  M3<S> t2 = m3_mul(p[6], b2);
-  M3<S> inner;
-#pragma unroll
-  for (int k = 0; k < 9; ++k) inner.a[k] = blk[1].a[k] + t2.a[k];
-  M3<S> t1 = m3_mul(p[6], inner);
-  M3<S> out;
-#pragma unroll
-  for (int k = 0; k < 9; ++k) out.a[k] = blk[0].a[k] + t1.a[k];
-  return out;
+  return acc;
 }
 
-// Taylor coefficients: e^b, phi1(b) = (e^b - I)/b, E - I, centred moment J
-struct Coeffs {
-  double ce[19], c1[19], cphi[19], cj[19];
-};
-__constant__ Coeffs kC;
-
 template <typename S, typename T>
-__device__ M3<S> expm3(const M3<S>& a, int max_sq) {
+__device__ __forceinline__ M3<S> expm3(const M3<S>& a, int max_sq) {
   int ns;
   T sc;
   scaling<S, T>(a, max_sq, ns, sc);
-  M3<S> p[7];
+  M3<S> p[kPS + 1];
   ps_powers(m3_scale(a, sc), p);
-  M3<S> e = ps_horner<S, T>(p, kC.ce);
+  M3<S> e = ps_horner<S, T, SER_E>(p);
   for (int i = 0; i < ns; ++i) e = m3_mul(e, e);
   return e;
 }
 
 // Phi = e^a - I without cancellation: Phi(2h) = Phi^2 + 2 Phi
 template <typename S, typename T>
-__device__ M3<S> expm3_m1(const M3<S>& a, int max_sq) {
+__device__ __forceinline__ M3<S> expm3_m1(const M3<S>& a, int max_sq) {
   int ns;
   T sc;
   scaling<S, T>(a, max_sq, ns, sc);
-  M3<S> p[7];
+  M3<S> p[kPS + 1];
   ps_powers(m3_scale(a, sc), p);
-  M3<S> phi = ps_horner<S, T>(p, kC.cphi);
+  M3<S> phi = ps_horner<S, T, SER_PHI>(p);
   for (int i = 0; i < ns; ++i) {
     M3<S> sq = m3_mul(phi, phi);
 #pragma unroll
@@ -287,32 +387,40 @@ __device__ M3<S> expm3_m1(const M3<S>& a, int max_sq) {
 }
 
 // (N1, J) of the stretched generator: N1 = int_0^1 e^{as} ds and the
-// centred first moment J = int_0^1 (s - 1/2) e^{as} ds
+// centred first moment J = int_0^1 (s - 1/2) e^{as} ds.  One series at a
+// time; Phi = E - I only where a doubling step needs it.
 template <typename S, typename T>
-__device__ void expm3_nc_moments(const M3<S>& a, int max_sq, M3<S>& n1, M3<S>& j) {
+__device__ __forceinline__ void expm3_nc_moments(const M3<S>& a, int max_sq, M3<S>& n1, M3<S>& j) {
   int ns;
   T h;
   scaling<S, T>(a, max_sq, ns, h);
-  M3<S> p[7];
+  M3<S> p[kPS + 1];
   ps_powers(m3_scale(a, h), p);
-  M3<S> phi1 = ps_horner<S, T>(p, kC.c1);
-  M3<S> phim = ps_horner<S, T>(p, kC.cphi);
-  M3<S> jr = ps_horner<S, T>(p, kC.cj);
+  {
+    M3<S> jr = ps_horner<S, T, SER_J>(p);
 #pragma unroll
-  for (int k = 0; k < 9; ++k) {
-    n1.a[k] = h * phi1.a[k];
-    j.a[k] = (h * h) * jr.a[k];
+    for (int k = 0; k < 9; ++k) j.a[k] = (h * h) * jr.a[k];
   }
+  {
+    M3<S> phi1 = ps_horner<S, T, SER_1>(p);
+#pragma unroll
+    for (int k = 0; k < 9; ++k) n1.a[k] = h * phi1.a[k];
+  }
+  if (ns == 0) return;
+  M3<S> phim = ps_horner<S, T, SER_PHI>(p);
   for (int i = 0; i < ns; ++i) {
-    M3<S> tmp = m3_mul(phim, n1);
-    M3<S> pj = m3_mul(phim, j);
+    {
+      M3<S> tmp = m3_mul(phim, n1);
+      M3<S> pj = m3_mul(phim, j);
+#pragma unroll
+      for (int k = 0; k < 9; ++k) {
+        j.a[k] = T(2.0) * j.a[k] + pj.a[k] + (T(0.5) * h) * tmp.a[k];
+        n1.a[k] = T(2.0) * n1.a[k] + tmp.a[k];
+      }
+    }
     M3<S> pp = m3_mul(phim, phim);
 #pragma unroll
-    for (int k = 0; k < 9; ++k) {
-      j.a[k] = T(2.0) * j.a[k] + pj.a[k] + (T(0.5) * h) * tmp.a[k];
-      n1.a[k] = T(2.0) * n1.a[k] + tmp.a[k];
-      phim.a[k] = pp.a[k] + T(2.0) * phim.a[k];
-    }
+    for (int k = 0; k < 9; ++k) phim.a[k] = pp.a[k] + T(2.0) * phim.a[k];
     h = T(2.0) * h;
   }
 }
@@ -415,88 +523,135 @@ __device__ __forceinline__ void pulse_cols(T& q0, T& q1, T& q2, T rate, int pop)
 
 // ------------------------------------------------------------ residuals
 
+// A thread's rarely read state lives in shared memory, one column per
+// thread, read through a volatile pointer where it is used, so it holds no
+// registers across the LM iterations: the residual's inputs (cpfit reads the
+// entry state p, the others its normalised pn; the targets are cpfit's
+// s * em1m(lh T) or ECT's ect_dev), the stretched migration rates, and the
+// interval's length, rates and pulses.
+enum { F_Q00, F_Q01, F_Q02, F_Q10, F_Q11, F_Q12, F_T0, F_T1, F_MU0, F_MU1,
+       F_TT, F_LH0, F_LH1, F_PU0, F_PU1, kCold };
+
+__device__ __forceinline__ float lds(unsigned a, float) {
+  float v;
+  asm volatile("ld.shared.f32 %0, [%1];" : "=f"(v) : "r"(a));
+  return v;
+}
+__device__ __forceinline__ double lds(unsigned a, double) {
+  double v;
+  asm volatile("ld.shared.f64 %0, [%1];" : "=d"(v) : "r"(a));
+  return v;
+}
+__device__ __forceinline__ void sts(unsigned a, float v) {
+  asm volatile("st.shared.f32 [%0], %1;" ::"r"(a), "f"(v) : "memory");
+}
+__device__ __forceinline__ void sts(unsigned a, double v) {
+  asm volatile("st.shared.f64 [%0], %1;" ::"r"(a), "d"(v) : "memory");
+}
+
 template <typename T>
 struct Ctx {
-  T p00, p01, p02, p10, p11, p12;        // state entering the solve
-  T pn00, pn01, pn02, pn10, pn11, pn12;  // ... normalised
-  T s0, s1;                              // its total masses
-  T mu0s, mu1s;                          // stretched migration rates
-  T em_s0, em_s1;                        // em1m of the target rates (cpfit)
-  T ect_s0, ect_s1;                      // ect_dev of the target rates (ECT)
-  T ect_raw0, ect_raw1;                  // ect_dev of the unmerged targets
+  unsigned col;   // shared address of this thread's field 0
+  unsigned step;  // bytes between fields
   int max_sq;
+  __device__ T operator[](int f) const { return lds(col + f * step, T()); }
+  __device__ void set(int f, T v) const { sts(col + f * step, v); }
 };
 
 // cpfit: no-coalescence masses as deviations from the total mass
 template <typename S, typename T>
-__device__ void res_cp(const Ctx<T>& c, const S& a0, const S& a1, S& r0, S& r1) {
-  M3<S> phi = expm3_m1<S, T>(corr_mat<S, T>(a0, a1, c.mu0s, c.mu1s), c.max_sq);
+__device__ __forceinline__ void res_cp(const Ctx<T>& c, const S& a0, const S& a1, S& r0, S& r1) {
+  M3<S> phi = expm3_m1<S, T>(corr_mat<S, T>(a0, a1, c[F_MU0], c[F_MU1]), c.max_sq);
   S cs0 = phi.a[0] + phi.a[3] + phi.a[6];
   S cs1 = phi.a[1] + phi.a[4] + phi.a[7];
   S cs2 = phi.a[2] + phi.a[5] + phi.a[8];
-  r0 = cs0 * c.p00 + cs1 * c.p01 + cs2 * c.p02 + S(c.s0 * c.em_s0);
-  r1 = cs0 * c.p10 + cs1 * c.p11 + cs2 * c.p12 + S(c.s1 * c.em_s1);
+  r0 = cs0 * c[F_Q00] + cs1 * c[F_Q01] + cs2 * c[F_Q02] + S(c[F_T0]);
+  r1 = cs0 * c[F_Q10] + cs1 * c[F_Q11] + cs2 * c[F_Q12] + S(c[F_T1]);
 }
 
 // expected coalescence time with migration: conditional mean minus its
 // T/2 baseline, 1 - pnc == a0 (N1 p)_0 + a1 (N1 p)_1
 template <typename S, typename T>
-__device__ void res_ect(const Ctx<T>& c, const S& a0, const S& a1, S& r0, S& r1) {
+__device__ __forceinline__ void res_ect(const Ctx<T>& c, const S& a0, const S& a1, S& r0, S& r1) {
   M3<S> n1, jm;
-  expm3_nc_moments<S, T>(corr_mat<S, T>(a0, a1, c.mu0s, c.mu1s), c.max_sq, n1, jm);
-  S n1p00 = n1.a[0] * c.pn00 + n1.a[1] * c.pn01 + n1.a[2] * c.pn02;
-  S n1p01 = n1.a[3] * c.pn00 + n1.a[4] * c.pn01 + n1.a[5] * c.pn02;
-  S n1p10 = n1.a[0] * c.pn10 + n1.a[1] * c.pn11 + n1.a[2] * c.pn12;
-  S n1p11 = n1.a[3] * c.pn10 + n1.a[4] * c.pn11 + n1.a[5] * c.pn12;
-  S jp00 = jm.a[0] * c.pn00 + jm.a[1] * c.pn01 + jm.a[2] * c.pn02;
-  S jp01 = jm.a[3] * c.pn00 + jm.a[4] * c.pn01 + jm.a[5] * c.pn02;
-  S jp10 = jm.a[0] * c.pn10 + jm.a[1] * c.pn11 + jm.a[2] * c.pn12;
-  S jp11 = jm.a[3] * c.pn10 + jm.a[4] * c.pn11 + jm.a[5] * c.pn12;
+  expm3_nc_moments<S, T>(corr_mat<S, T>(a0, a1, c[F_MU0], c[F_MU1]), c.max_sq, n1, jm);
+  const T q00 = c[F_Q00], q01 = c[F_Q01], q02 = c[F_Q02];
+  const T q10 = c[F_Q10], q11 = c[F_Q11], q12 = c[F_Q12];
+  S n1p00 = n1.a[0] * q00 + n1.a[1] * q01 + n1.a[2] * q02;
+  S n1p01 = n1.a[3] * q00 + n1.a[4] * q01 + n1.a[5] * q02;
+  S n1p10 = n1.a[0] * q10 + n1.a[1] * q11 + n1.a[2] * q12;
+  S n1p11 = n1.a[3] * q10 + n1.a[4] * q11 + n1.a[5] * q12;
+  S jp00 = jm.a[0] * q00 + jm.a[1] * q01 + jm.a[2] * q02;
+  S jp01 = jm.a[3] * q00 + jm.a[4] * q01 + jm.a[5] * q02;
+  S jp10 = jm.a[0] * q10 + jm.a[1] * q11 + jm.a[2] * q12;
+  S jp11 = jm.a[3] * q10 + jm.a[4] * q11 + jm.a[5] * q12;
   S den0 = a0 * n1p00 + a1 * n1p01;
   S den1 = a0 * n1p10 + a1 * n1p11;
   S t2_0 = (a0 * jp00 + a1 * jp01) / den0;
   S t2_1 = (a0 * jp10 + a1 * jp11) / den1;
-  r0 = t2_0 - c.ect_s0;
-  r1 = t2_1 - c.ect_s1;
+  r0 = t2_0 - c[F_T0];
+  r1 = t2_1 - c[F_T1];
 }
 
 // expected coalescence time without migration
 template <typename S, typename T>
-__device__ void res_nomig(const Ctx<T>& c, const S& a0, const S& a1, S& r0, S& r1) {
+__device__ __forceinline__ void res_nomig(const Ctx<T>& c, const S& a0, const S& a1, S& r0, S& r1) {
   S d0 = em1m<S, T>(a0);
   S d1 = em1m<S, T>(a1);
   S q0 = ectnc_dev<S, T>(a0);
   S q1 = ectnc_dev<S, T>(a1);
-  S den0 = c.pn00 * d0 + c.pn01 * d1;
-  S den1 = c.pn10 * d0 + c.pn11 * d1;
-  S ct0 = (c.pn00 * q0 + c.pn01 * q1) / den0;
-  S ct1 = (c.pn10 * q0 + c.pn11 * q1) / den1;
-  r0 = ct0 - c.ect_raw0;
-  r1 = ct1 - c.ect_raw1;
+  const T q00 = c[F_Q00], q01 = c[F_Q01], q10 = c[F_Q10], q11 = c[F_Q11];
+  S den0 = q00 * d0 + q01 * d1;
+  S den1 = q10 * d0 + q11 * d1;
+  S ct0 = (q00 * q0 + q01 * q1) / den0;
+  S ct1 = (q10 * q0 + q11 * q1) / den1;
+  r0 = ct0 - c[F_T0];
+  r1 = ct1 - c[F_T1];
 }
 
 enum { RES_CP = 0, RES_ECT = 1, RES_NOMIG = 2 };
 
-// residual and 2x2 Jacobian in one dual-number pass
+template <int MODE, typename S, typename T>
+__device__ __forceinline__ void residual(const Ctx<T>& c, const S& a0, const S& a1, S& r0, S& r1) {
+  if constexpr (MODE == RES_CP) res_cp<S, T>(c, a0, a1, r0, r1);
+  if constexpr (MODE == RES_ECT) res_ect<S, T>(c, a0, a1, r0, r1);
+  if constexpr (MODE == RES_NOMIG) res_nomig<S, T>(c, a0, a1, r0, r1);
+}
+
+// residual and 2x2 Jacobian by forward mode: column k of the Jacobian is
+// the tangent along x_k; with one tangent per pass the residual runs twice
 template <int MODE, typename T>
-__device__ void lin_at(const Ctx<T>& c, T x0, T x1, T& r0, T& r1, T& j00, T& j10,
-                       T& j01, T& j11) {
-  D2<T> a0(x0, T(1), T(0)), a1(x1, T(0), T(1)), o0, o1;
-  if constexpr (MODE == RES_CP) res_cp<D2<T>, T>(c, a0, a1, o0, o1);
-  if constexpr (MODE == RES_ECT) res_ect<D2<T>, T>(c, a0, a1, o0, o1);
-  if constexpr (MODE == RES_NOMIG) res_nomig<D2<T>, T>(c, a0, a1, o0, o1);
-  r0 = o0.v;
-  r1 = o1.v;
-  j00 = o0.d0;
-  j10 = o1.d0;
-  j01 = o0.d1;
-  j11 = o1.d1;
+__device__ __forceinline__ void lin_at(const Ctx<T>& c, T x0, T x1, T& r0, T& r1, T& j00,
+                                       T& j10, T& j01, T& j11) {
+  using S = Dual<T, kTangents>;
+#pragma unroll 1
+  for (int k0 = 0; k0 < 2; k0 += kTangents) {
+    S a0(x0), a1(x1), o0, o1;
+#pragma unroll
+    for (int i = 0; i < kTangents; ++i) {
+      a0.d[i] = T(k0 + i == 0 ? 1 : 0);
+      a1.d[i] = T(k0 + i == 1 ? 1 : 0);
+    }
+    residual<MODE, S, T>(c, a0, a1, o0, o1);
+    r0 = o0.v;
+    r1 = o1.v;
+#pragma unroll
+    for (int i = 0; i < kTangents; ++i) {
+      if (k0 + i == 0) {
+        j00 = o0.d[i];
+        j10 = o1.d[i];
+      } else {
+        j01 = o0.d[i];
+        j11 = o1.d[i];
+      }
+    }
+  }
 }
 
 // Fixed-budget 2-unknown Levenberg-Marquardt (damping 1e-3 with x0.25/x4,
 // trust region x2/x0.5, accept on decrease); leaves the loop once converged
 template <int MODE, typename T>
-__device__ void lm2(const Ctx<T>& c, T& x0, T& x1, int n_iters, T lower0, T lower1) {
+__device__ __forceinline__ void lm2(const Ctx<T>& c, T& x0, T& x1, int n_iters, T lower0, T lower1) {
   x0 = jmax(x0, lower0);
   x1 = jmax(x1, lower1);
   T trust = jmax(m_sqrt(x0 * x0 + x1 * x1), T(1.0));
@@ -554,11 +709,12 @@ struct Geometry {
 // solve (pulses applied) and the state after each interval.  Every thread
 // of the block calls it: it holds the block-wide prefix product.
 template <typename T, bool HAS_PULSE>
-__device__ void chain(const Geometry& g, T* sm, T x0s, T x1s, T mu0s, T mu1s, T pu0,
-                      T pu1, int max_sq, T (&pin)[6], T (&pa)[6]) {
-  M3<T> gm = expm3<T, T>(corr_mat<T, T>(x0s, x1s, mu0s, mu1s), max_sq);
+__device__ __forceinline__ void chain(const Geometry& g, T* sm, const Ctx<T>& cx, T x0s, T x1s,
+                                      T (&pin)[6], T (&pa)[6]) {
+  M3<T> gm = expm3<T, T>(corr_mat<T, T>(x0s, x1s, cx[F_MU0], cx[F_MU1]), cx.max_sq);
   if constexpr (HAS_PULSE) {
     // pulses act before the exponential: P = PU1 @ PU0, column by column
+    const T pu0 = cx[F_PU0], pu1 = cx[F_PU1];
     M3<T> pm;
 #pragma unroll
     for (int j = 0; j < 3; ++j) {
@@ -600,8 +756,8 @@ __device__ void chain(const Geometry& g, T* sm, T x0s, T x1s, T mu0s, T mu1s, T 
   for (int gi = 0; gi < 2; ++gi) {
     T q0 = ex.a[0 + gi], q1 = ex.a[3 + gi], q2 = ex.a[6 + gi];
     if constexpr (HAS_PULSE) {
-      pulse_cols(q0, q1, q2, pu0, 0);
-      pulse_cols(q0, q1, q2, pu1, 1);
+      pulse_cols(q0, q1, q2, cx[F_PU0], 0);
+      pulse_cols(q0, q1, q2, cx[F_PU1], 1);
     }
     pin[3 * gi + 0] = q0;
     pin[3 * gi + 1] = q1;
@@ -615,88 +771,92 @@ __device__ void chain(const Geometry& g, T* sm, T x0s, T x1s, T mu0s, T mu1s, T 
 // One interval's solve from the entry state pin and warm start (x0, x1)
 // (stretched units); returns unstretched rates.
 template <typename T, bool CPFIT, bool STATIC_NO_MIG>
-__device__ void solve(const T (&pin)[6], T Tt, T lh0, T lh1, T mu0s, T mu1s, bool no_mig,
-                      T x0, T x1, int n_iters, T mixture_th, int max_sq, T& lc0, T& lc1) {
-  Ctx<T> c;
-  c.max_sq = max_sq;
-  c.mu0s = mu0s;
-  c.mu1s = mu1s;
-  c.p00 = pin[0];
-  c.p01 = pin[1];
-  c.p02 = pin[2];
-  c.p10 = pin[3];
-  c.p11 = pin[4];
-  c.p12 = pin[5];
-  c.s0 = c.p00 + c.p01 + c.p02;
-  c.s1 = c.p10 + c.p11 + c.p12;
-  c.pn00 = c.p00 / c.s0;
-  c.pn01 = c.p01 / c.s0;
-  c.pn02 = c.p02 / c.s0;
-  c.pn10 = c.p10 / c.s1;
-  c.pn11 = c.p11 / c.s1;
-  c.pn12 = c.p12 / c.s1;
-  T nv0 = m_sqrt(c.p00 * c.p00 + c.p01 * c.p01 + c.p02 * c.p02);
-  T nv1 = m_sqrt(c.p10 * c.p10 + c.p11 * c.p11 + c.p12 * c.p12);
-  T e0 = c.p00 - c.p10, e1 = c.p01 - c.p11, e2 = c.p02 - c.p12;
+__device__ __forceinline__ void solve(const T (&pin)[6], const Ctx<T>& c, bool no_mig, T x0, T x1,
+                                      int n_iters, T mixture_th, T& lc0, T& lc1) {
+  const T Tt = c[F_TT], lh0 = c[F_LH0], lh1 = c[F_LH1];
+  const T p00 = pin[0], p01 = pin[1], p02 = pin[2];
+  const T p10 = pin[3], p11 = pin[4], p12 = pin[5];
+  const T s0 = p00 + p01 + p02;
+  const T s1 = p10 + p11 + p12;
+  const T pn00 = p00 / s0, pn01 = p01 / s0, pn02 = p02 / s0;
+  const T pn10 = p10 / s1, pn11 = p11 / s1, pn12 = p12 / s1;
+  T nv0 = m_sqrt(p00 * p00 + p01 * p01 + p02 * p02);
+  T nv1 = m_sqrt(p10 * p10 + p11 * p11 + p12 * p12);
+  T e0 = p00 - p10, e1 = p01 - p11, e2 = p02 - p12;
   T nd = m_sqrt(e0 * e0 + e1 * e1 + e2 * e2);
   bool merge = nd < T(0.02) * jmin(nv0, nv1);
   T lh_raw_s0 = lh0 * Tt, lh_raw_s1 = lh1 * Tt;
   T lh_mid = T(0.5) * (lh0 + lh1) * Tt;
   T lh_s0 = merge ? lh_mid : lh_raw_s0;
   T lh_s1 = merge ? lh_mid : lh_raw_s1;
+  // the mixture bail-out, decided before the solve so pn need not stay live
+  bool bail = false;
+  if (mixture_th > T(0)) {
+    T f0 = pn00 - pn10, f1 = pn01 - pn11, f2 = pn02 - pn12;
+    bail = m_sqrt(f0 * f0 + f1 * f1 + f2 * f2) < mixture_th;
+  }
 
   if constexpr (CPFIT) {
     // no-migration closed form (CorrectLambda.py:213-235), unstretched
-    T det = c.pn00 * c.pn11 - c.pn01 * c.pn10;
+    T det = pn00 * pn11 - pn01 * pn10;
     if (det == T(0)) det = T(1.0);
     T em0 = em1m<T, T>(lh0 * Tt);
     T em1v = em1m<T, T>(lh1 * Tt);
-    T dy1 = (c.pn01 * em1v - c.pn11 * em0) / det;
-    T dy2 = (c.pn10 * em0 - c.pn00 * em1v) / det;
+    T dy1 = (pn01 * em1v - pn11 * em0) / det;
+    T dy2 = (pn10 * em0 - pn00 * em1v) / det;
     bool good = (dy1 > T(-1.0)) && (dy2 > T(-1.0));
     lc0 = good ? -log1p_c(dy1) / Tt : T(-1.0);
     lc1 = good ? -log1p_c(dy2) / Tt : T(-1.0);
     if (!STATIC_NO_MIG && !no_mig) {
-      c.em_s0 = em1m<T, T>(lh_s0);
-      c.em_s1 = em1m<T, T>(lh_s1);
+      c.set(F_Q00, p00);
+      c.set(F_Q01, p01);
+      c.set(F_Q02, p02);
+      c.set(F_Q10, p10);
+      c.set(F_Q11, p11);
+      c.set(F_Q12, p12);
+      c.set(F_T0, s0 * em1m<T, T>(lh_s0));
+      c.set(F_T1, s1 * em1m<T, T>(lh_s1));
       lm2<RES_CP, T>(c, x0, x1, n_iters, T(-INFINITY), T(-INFINITY));
-      lc0 = x0 / Tt;
-      lc1 = x1 / Tt;
+      lc0 = x0 / c[F_TT];
+      lc1 = x1 / c[F_TT];
     }
   } else {
-    c.ect_raw0 = ect_dev(lh_raw_s0);
-    c.ect_raw1 = ect_dev(lh_raw_s1);
-    T lower_nm = T(0.01) * jmin(lh_raw_s0, lh_raw_s1);
+    c.set(F_Q00, pn00);
+    c.set(F_Q01, pn01);
+    c.set(F_Q02, pn02);
+    c.set(F_Q10, pn10);
+    c.set(F_Q11, pn11);
+    c.set(F_Q12, pn12);
     if (STATIC_NO_MIG || no_mig) {
+      c.set(F_T0, ect_dev(lh_raw_s0));
+      c.set(F_T1, ect_dev(lh_raw_s1));
+      T lower_nm = T(0.01) * jmin(lh_raw_s0, lh_raw_s1);
       lm2<RES_NOMIG, T>(c, x0, x1, n_iters, lower_nm, lower_nm);
     } else {
-      c.ect_s0 = ect_dev(lh_s0);
-      c.ect_s1 = ect_dev(lh_s1);
+      c.set(F_T0, ect_dev(lh_s0));
+      c.set(F_T1, ect_dev(lh_s1));
       lm2<RES_ECT, T>(c, x0, x1, n_iters, T(-INFINITY), T(-INFINITY));
     }
-    lc0 = x0 / Tt;
-    lc1 = x1 / Tt;
+    lc0 = x0 / c[F_TT];
+    lc1 = x1 / c[F_TT];
   }
-  if (mixture_th > T(0)) {
-    T f0 = c.pn00 - c.pn10, f1 = c.pn01 - c.pn11, f2 = c.pn02 - c.pn12;
-    if (m_sqrt(f0 * f0 + f1 * f1 + f2 * f2) < mixture_th) {
-      lc0 = T(-1.0);
-      lc1 = T(-1.0);
-    }
+  if (bail) {
+    lc0 = T(-1.0);
+    lc1 = T(-1.0);
   }
   // zero-length (padding) intervals: lc = 1, an exact no-op in the chain
-  if (Tt == T(0)) {
+  if (c[F_TT] == T(0)) {
     lc0 = T(1.0);
     lc1 = T(1.0);
   }
 }
 
 template <typename T, bool CPFIT, bool STATIC_NO_MIG, bool HAS_PULSE>
-__global__ void __launch_bounds__(kMaxThreads)
+__global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
 sweep_kernel(const T* __restrict__ inp, T* __restrict__ out, int s, int B, int L,
              T mixture_th, int rounds, int iters0, int iters_warm, int max_sq) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* sm = reinterpret_cast<T*>(smem_raw);  // [9][s][L]
+  T* sm = reinterpret_cast<T*>(smem_raw);  // scan [9][s][L], then the cold state [kCold][s][L]
   Geometry g;
   g.s = s;
   g.B = B;
@@ -708,29 +868,37 @@ sweep_kernel(const T* __restrict__ inp, T* __restrict__ out, int s, int B, int L
   const int b = live ? g.lane : B - 1;  // ragged last block: duplicate a lane
   const size_t plane = (size_t)s * B;
   const size_t idx = (size_t)g.t * B + b;
+  Ctx<T> cx;
+  cx.step = s * L * sizeof(T);
+  cx.col = (unsigned)__cvta_generic_to_shared(sm + 9 * s * L + threadIdx.x);
+  cx.max_sq = max_sq;
   const T Tt = inp[idx];
   const T lh0 = inp[plane + idx];
   const T lh1 = inp[2 * plane + idx];
   const T mi0 = inp[3 * plane + idx];
   const T mi1 = inp[4 * plane + idx];
-  const T pu0 = HAS_PULSE ? inp[5 * plane + idx] : T(0);
-  const T pu1 = HAS_PULSE ? inp[6 * plane + idx] : T(0);
-  const T mu0s = mi0 * Tt, mu1s = mi1 * Tt;
+  cx.set(F_TT, Tt);
+  cx.set(F_LH0, lh0);
+  cx.set(F_LH1, lh1);
+  cx.set(F_MU0, mi0 * Tt);
+  cx.set(F_MU1, mi1 * Tt);
+  if (HAS_PULSE) {
+    cx.set(F_PU0, inp[5 * plane + idx]);
+    cx.set(F_PU1, inp[6 * plane + idx]);
+  }
   const bool no_mig = (mi0 + mi1) < T(1e-10);
 
   T pin[6], pa[6], lc0, lc1;
   T x0 = lh0 * Tt, x1 = lh1 * Tt;
-  chain<T, HAS_PULSE>(g, sm, x0, x1, mu0s, mu1s, pu0, pu1, max_sq, pin, pa);
-  solve<T, CPFIT, STATIC_NO_MIG>(pin, Tt, lh0, lh1, mu0s, mu1s, no_mig, x0, x1, iters0,
-                                 mixture_th, max_sq, lc0, lc1);
+  chain<T, HAS_PULSE>(g, sm, cx, x0, x1, pin, pa);
+  solve<T, CPFIT, STATIC_NO_MIG>(pin, cx, no_mig, x0, x1, iters0, mixture_th, lc0, lc1);
   for (int r = 1; r < rounds; ++r) {
-    x0 = lc0 * Tt;
-    x1 = lc1 * Tt;
-    chain<T, HAS_PULSE>(g, sm, x0, x1, mu0s, mu1s, pu0, pu1, max_sq, pin, pa);
-    solve<T, CPFIT, STATIC_NO_MIG>(pin, Tt, lh0, lh1, mu0s, mu1s, no_mig, x0, x1,
-                                   iters_warm, mixture_th, max_sq, lc0, lc1);
+    x0 = lc0 * cx[F_TT];
+    x1 = lc1 * cx[F_TT];
+    chain<T, HAS_PULSE>(g, sm, cx, x0, x1, pin, pa);
+    solve<T, CPFIT, STATIC_NO_MIG>(pin, cx, no_mig, x0, x1, iters_warm, mixture_th, lc0, lc1);
   }
-  chain<T, HAS_PULSE>(g, sm, lc0 * Tt, lc1 * Tt, mu0s, mu1s, pu0, pu1, max_sq, pin, pa);
+  chain<T, HAS_PULSE>(g, sm, cx, lc0 * cx[F_TT], lc1 * cx[F_TT], pin, pa);
   if (live) {
     out[idx] = lc0;
     out[plane + idx] = lc1;
@@ -739,40 +907,41 @@ sweep_kernel(const T* __restrict__ inp, T* __restrict__ out, int s, int B, int L
   }
 }
 
+// lanes per block: a power of two, at most 32, with L * s <= kMaxThreads
+int lanes_per_block(int s) {
+  int L = 1;
+  while (L * 2 * s <= kMaxThreads && L * 2 <= 32) L *= 2;
+  return L;
+}
+
+template <typename T>
+size_t smem_bytes(int s, int L) { return (9 + kCold) * (size_t)s * L * sizeof(T); }
+
 template <typename T, bool CPFIT, bool SNM, bool PULSE>
 cudaError_t launch(const T* inp, T* out, int s, int B, T mth, int rounds, int iters0,
                    int iters_warm, int max_sq, cudaStream_t stream) {
-  int L = 1;
-  while (L * 2 * s <= kMaxThreads && L * 2 <= 32) L *= 2;
+  const int L = lanes_per_block(s);
   dim3 block(L * s), grid((B + L - 1) / L);
-  size_t shm = 9 * (size_t)s * L * sizeof(T);
-  sweep_kernel<T, CPFIT, SNM, PULSE><<<grid, block, shm, stream>>>(
+  sweep_kernel<T, CPFIT, SNM, PULSE><<<grid, block, smem_bytes<T>(s, L), stream>>>(
       inp, out, s, B, L, mth, rounds, iters0, iters_warm, max_sq);
   return cudaGetLastError();
 }
 
-double factorial(int k) {
-  double f = 1.0;
-  for (int i = 2; i <= k; ++i) f *= i;
-  return f;
-}
-
-// the Taylor tables go to each device's constant bank once per process
-cudaError_t upload_coeffs() {
-  static bool done[64] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+// registers, local (spill) bytes and resident blocks per SM of one instance
+template <typename T, bool CPFIT, bool SNM, bool PULSE>
+cudaError_t attrs(int s, int* o) {
+  auto fn = sweep_kernel<T, CPFIT, SNM, PULSE>;
+  cudaFuncAttributes fa;
+  cudaError_t err = cudaFuncGetAttributes(&fa, fn);
   if (err != cudaSuccess) return err;
-  if (dev < 64 && done[dev]) return cudaSuccess;
-  Coeffs h;
-  for (int k = 0; k < 19; ++k) {
-    h.ce[k] = 1.0 / factorial(k);
-    h.c1[k] = 1.0 / factorial(k + 1);
-    h.cphi[k] = k == 0 ? 0.0 : 1.0 / factorial(k);
-    h.cj[k] = k == 0 ? 0.0 : k / (2.0 * factorial(k + 2));
-  }
-  err = cudaMemcpyToSymbol(kC, &h, sizeof(Coeffs));
-  if (err == cudaSuccess && dev < 64) done[dev] = true;
+  const int L = lanes_per_block(s);
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, L * s, smem_bytes<T>(s, L));
+  o[0] = SNM;
+  o[1] = PULSE;
+  o[2] = fa.numRegs;
+  o[3] = (int)fa.localSizeBytes;
+  o[4] = blocks;
   return err;
 }
 
@@ -787,12 +956,11 @@ extern "C" int misti_correction_sweep(const void* inp, void* out, int s, int B,
   using T = MISTI_T;
   constexpr bool CP = MISTI_CPFIT != 0;
   if (s < 1 || s > kMaxThreads || B < 1) return (int)cudaErrorInvalidValue;
-  cudaError_t err = upload_coeffs();
-  if (err != cudaSuccess) return (int)err;
   const T* in = static_cast<const T*>(inp);
   T* o = static_cast<T*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const T mth = (T)mixture_th;
+  cudaError_t err;
   if (static_no_mig && has_pulse)
     err = launch<T, CP, true, true>(in, o, s, B, mth, rounds, iters0, iters_warm, max_squarings, st);
   else if (static_no_mig)
@@ -801,5 +969,20 @@ extern "C" int misti_correction_sweep(const void* inp, void* out, int s, int B,
     err = launch<T, CP, false, true>(in, o, s, B, mth, rounds, iters0, iters_warm, max_squarings, st);
   else
     err = launch<T, CP, false, false>(in, o, s, B, mth, rounds, iters0, iters_warm, max_squarings, st);
+  return (int)err;
+}
+
+// Per template instance (static_no_mig, has_pulse) = (0,0), (0,1), (1,0),
+// (1,1): out[5 i .. 5 i + 4] = static_no_mig, has_pulse, registers per
+// thread, local memory bytes per thread, resident blocks per SM at the
+// launch's block size and shared memory for s intervals.
+extern "C" int misti_correction_sweep_attrs(int s, int* out) {
+  using T = MISTI_T;
+  constexpr bool CP = MISTI_CPFIT != 0;
+  if (s < 1 || s > kMaxThreads) return (int)cudaErrorInvalidValue;
+  cudaError_t err = attrs<T, CP, false, false>(s, out);
+  if (err == cudaSuccess) err = attrs<T, CP, false, true>(s, out + 5);
+  if (err == cudaSuccess) err = attrs<T, CP, true, false>(s, out + 10);
+  if (err == cudaSuccess) err = attrs<T, CP, true, true>(s, out + 15);
   return (int)err;
 }

@@ -164,3 +164,62 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError):
         cf.correction_sweep(torch.ones(7, cf.MAX_INTERVALS + 1, 2, dtype=torch.float64,
                                        device=cuda), cpfit=True)
+
+
+# the kernel's ten variants: {cpfit, ECT} x {migration, static_no_mig} x
+# {no pulse, pulse}, plus per-lane tables with T == 0 padding rows
+VARIANTS = [
+    dict(cpfit=cp, static_no_mig=snm, has_pulse=pulse, per_lane=False)
+    for cp in (True, False) for snm in (False, True) for pulse in (False, True)
+] + [dict(cpfit=cp, static_no_mig=False, has_pulse=True, per_lane=True) for cp in (True, False)]
+
+
+def _variant_id(v):
+    return (f"{'cpfit' if v['cpfit'] else 'ect'}-{'snm' if v['static_no_mig'] else 'mig'}"
+            f"-{'pulse' if v['has_pulse'] else 'nopulse'}{'-perlane' if v['per_lane'] else ''}")
+
+
+def _variant_input(v, dtype, device, s=12, b=64):
+    """A seeded (7, s, b) sweep input for one variant; one lane in eight
+    without migration, so both branches of a mixed warp run."""
+    rng = np.random.default_rng(51)
+    lh = rng.uniform(0.5, 2.0, (s, 2))
+    times = rng.uniform(0.05, 0.3, s)
+    mi = np.zeros((b, s, 2)) if v["static_no_mig"] else rng.uniform(0.0, 0.5, (b, s, 2))
+    mi[::8] = 0.0
+    pu = np.zeros((b, s, 2))
+    if v["has_pulse"]:
+        pu[:, 2, 1] = rng.uniform(0.0, 0.3, b)
+        pu[:, 7, 0] = rng.uniform(0.0, 0.2, b)
+    if v["per_lane"]:
+        lh = lh[None] * rng.uniform(0.8, 1.25, (b, 1, 2))
+        times = np.repeat(times[None], b, 0)
+        for lane in range(b):
+            if lane % 5:
+                times[lane, s - lane % 5:] = 0.0
+    t = lambda a: torch.tensor(a, dtype=dtype, device=device)
+    return cf.sweep_inputs(t(mi), t(pu), t(lh), t(times))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("variant", VARIANTS, ids=_variant_id)
+def test_every_kernel_variant_matches_plain_on_card(cuda, variant, dtype):
+    """Built with FMA contraction, the kernel matches its plain version to
+    rtol 1e-4 / atol 1e-6 in float32 and 1e-6 / 1e-9 in float64 (the
+    tolerances chip_smoke.py holds it to), with equal NaN masks."""
+    inp = _variant_input(variant, dtype, cuda)
+    opts = {k: variant[k] for k in ("cpfit", "static_no_mig", "has_pulse")}
+    got = cf.correction_sweep(inp, **opts)
+    torch.cuda.synchronize()
+    want = cf.correction_sweep_plain(inp, **opts)
+    rtol, atol = (1e-6, 1e-9) if dtype == torch.float64 else (1e-4, 1e-6)
+    torch.testing.assert_close(got, want, rtol=rtol, atol=atol, equal_nan=True)
+
+
+def test_no_float32_instance_spills(cuda):
+    """misti_correction_sweep_attrs: every float32 template instance runs
+    without local memory and fits at least one block per SM at s = 28."""
+    for cpfit in (True, False):
+        for a in cf.kernel_attrs(torch.float32, cpfit, 28):
+            assert a["local_bytes"] == 0, a
+            assert a["registers"] > 0 and a["blocks_per_sm"] >= 1, a
