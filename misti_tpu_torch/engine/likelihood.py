@@ -8,6 +8,13 @@ vectors ``params (B, n_par)``: the pre-split correction is one fused sweep
 plain torch version on the CPU), the post-split fit and the spectrum are
 torch ops over (B, ...) tensors with a Python loop over intervals.
 
+The stages after the pre-split sweep (`post_split_fit`, `last_rate`,
+`smooth_rates`, `jafs_spectrum`, `multinomial_llh`) take interval tables
+with a leading lane axis of 1 or B: `build_likelihood` passes its one
+spec's tables with a lane axis of 1, the fused split-time sweep
+(engine/sweep_fused.py) each lane's own.  Zero-length rows (T == 0) are
+exact no-ops through all of them.
+
 Failure semantics follow the reference: negative parameters or a failed
 lambda correction (any corrected rate <= 0 pre-split) yield -inf
 (MigrationInference.py:566-578) via a validity mask instead of early returns.
@@ -42,6 +49,195 @@ def _pulse_update_3state(p, rate, pop: int):
     cols[q] = cp * rate**2 + cq + c2 * rate
     cols[2] = cp * 2.0 * (1.0 - rate) * rate + c2 * (1.0 - rate)
     return torch.stack(cols, dim=-1)
+
+
+def post_split_fit(nc, lh_post, T_post, *, cpfit: bool):
+    """Post-split single-population rates (MigrationInference.py:355-370).
+
+    ``nc`` (B, 2) is the pre-split carry; ``lh_post`` (L, n, 2) and
+    ``T_post`` (L, n) with L = 1 or B.  A T == 0 row gets lc = 1 and leaves
+    the carry as it is (the reference's rule, :357-359).  Returns lc_post
+    (B, n, 2) and the final carry (B, 2).
+    """
+    B, n_post = nc.shape[0], T_post.shape[1]
+    if cpfit or n_post == 0:
+        lc_post = []
+        for t in range(n_post):
+            T_t = T_post[:, t]
+            zero = T_t == 0
+            # deviation form of :366: form pnc - 1 from expm1 masses and
+            # take -log1p (f32-stable; the weight is O(1))
+            ed = torch.exp(nc[:, 1] - nc[:, 0])
+            dpnc = -(
+                -torch.expm1(-T_t * lh_post[:, t, 0])
+                + ed * -torch.expm1(-T_t * lh_post[:, t, 1])
+            ) / (1.0 + ed)
+            lam = -torch.log1p(dpnc) / torch.where(zero, torch.ones_like(T_t), T_t)
+            lam = torch.where(zero, torch.ones_like(lam), lam)
+            lc_t = torch.stack([lam, lam], dim=-1)
+            nc = nc - T_t[:, None] * lc_t
+            lc_post.append(lc_t)
+        lc_post = (torch.stack(lc_post, dim=1) if lc_post
+                   else torch.zeros((B, 0, 2), dtype=nc.dtype, device=nc.device))
+        return lc_post, nc
+    # Jacobi fixed point: given lc guesses, every nc is one cumsum and every
+    # interval's fit runs in one batched call
+    zero = T_post == 0
+    t_safe = torch.where(zero, torch.ones_like(T_post), T_post)
+    lh_post = lh_post.expand(B, n_post, 2)
+    lc_post = lh_post.mean(dim=-1, keepdim=True).expand(B, n_post, 2)
+    for _ in range(_POST_OUTERS):
+        dec = T_post[..., None] * lc_post  # (B, n_post, 2)
+        csum = torch.cumsum(dec, dim=1)
+        nc_t = nc[:, None, :] - torch.cat(
+            [torch.zeros_like(csum[:, :1]), csum[:, :-1]], dim=1)
+        # shift by the per-interval max: ratio-invariant, immune to f32 exp
+        # underflow of the cumulative log no-coal mass
+        w = torch.exp(nc_t - nc_t.max(dim=-1, keepdim=True).values)
+        lam = fit_single_pop(lh_post, t_safe, w)
+        lam = torch.where(zero, torch.ones_like(lam), lam)
+        lc_post = torch.stack([lam, lam], dim=-1)
+    return lc_post, nc - (T_post[..., None] * lc_post).sum(1)
+
+
+def last_rate(nc_fin, lh_last):
+    """Rate of the last (infinite) interval, (B,): the weighted harmonic mean
+    (:371-376), with a max-shifted exp (the mean is invariant to the common
+    factor).  ``lh_last`` (L, 2)."""
+    m_nc = torch.maximum(nc_fin[:, 0], nc_fin[:, 1])
+    pr0 = torch.exp(nc_fin[:, 0] - m_nc)
+    pr1 = torch.exp(nc_fin[:, 1] - m_nc)
+    return (pr0 + pr1) / (pr0 / lh_last[:, 0] + pr1 / lh_last[:, 1])
+
+
+def smooth_rates(lc_pre, smooth_w):
+    """Smoothed pre-split rates (B, s, 2): ``smooth_w`` (2, s, s) for every
+    lane, or (B, 2, s, s) per lane (one batched product)."""
+    if smooth_w.dim() == 3:
+        return torch.stack(
+            [lc_pre[..., 0] @ smooth_w[0].T, lc_pre[..., 1] @ smooth_w[1].T], dim=-1)
+    return (smooth_w @ lc_pre.transpose(1, 2)[..., None])[..., 0].transpose(1, 2)
+
+
+class SpectrumBasis:
+    """The spectrum's constant tables on one device and dtype."""
+
+    def __init__(self, dev: torch.device, dt: torch.dtype):
+        def tens(a):
+            # row-major: MKL's product with a transposed (44, 176) operand
+            # rounds a row differently at different batch sizes, which would
+            # make a lane's value depend on its batch
+            return torch.as_tensor(np.ascontiguousarray(a, dtype=float), dtype=dt,
+                                   device=dev)
+
+        b2 = ss.two_pop_basis()
+        b1 = ss.one_pop_basis()
+        self.b2, self.b1 = b2, b1
+        self.ancient = tens(b2.ancient)
+        self.collapse = tens(b2.collapse)
+        self.jsfs2 = tens(b2.jsfs)  # (44, 7)
+        self.jsfs1 = tens(b1.jsfs)  # (8, 7)
+        self.k2 = tens(np.concatenate(
+            [b2.coal[0].T, b2.coal[1].T, b2.migr[0].T, b2.migr[1].T], axis=1))  # (44, 176)
+        self.norms2 = tens(np.abs(np.stack(
+            [b2.coal[0], b2.coal[1], b2.migr[0], b2.migr[1]])).sum(axis=1).max(axis=1))
+        self.k1 = tens(b1.coal.T)  # (8, 8)
+        self.norms1 = tens(np.abs(b1.coal).sum(axis=0).max(keepdims=True))
+
+
+def _select(mask, a, b):
+    """``a`` where ``mask`` holds, else ``b``; ``mask`` is None (no lane),
+    True (every lane) or a (B,) bool tensor."""
+    if mask is None:
+        return b
+    if mask is True:
+        return a
+    return torch.where(mask[:, None], a, b)
+
+
+def jafs_spectrum(basis: SpectrumBasis, lc, mi, pu, T_pre, T_post, catmask,
+                  sample_at, rebase, pulse_site):
+    """Unnormalised 7-category spectrum, (B, 7) (JAFSpectrum,
+    MigrationInference.py:467-506).
+
+    ``lc`` (B, s + n_post + 1, 2) holds the rates of every interval, ``mi``
+    and ``pu`` (B, >= s, 2) the pre-split migration and pulse rates;
+    ``T_pre`` (L, s), ``T_post`` (L, n_post); ``catmask`` (s, 7) or
+    (B, s, 7).  ``sample_at[t]`` says where the ancient sample enters before
+    interval t and ``rebase`` where it enters at the split (each None, True
+    or a (B,) bool tensor); ``pulse_site`` (s, 2) host bools mark the pulses
+    that may be nonzero (P(0) is the identity, so the others are skipped).
+
+    Only the action of E and N1 on the carried state is needed, so each
+    interval is Taylor sub-stepping with (B, 44) @ (44, 176) basis products
+    (kernels/expm.py `expm_action_pair`).
+    """
+    B = lc.shape[0]
+    s, n_post = T_pre.shape[1], T_post.shape[1]
+    p0 = torch.zeros((B, 44), dtype=lc.dtype, device=lc.device)
+    p0[:, 2] = 1.0
+    coeffs_pre = torch.cat([lc[:, :s], mi[:, :s]], dim=-1)  # (B, s, 4)
+    coeffs_post = lc[:, s:s + n_post, :1]  # (B, n_post, 1)
+    # sub-step loop bounds of every interval in one host read
+    m_pre, _ = substep_counts(coeffs_pre, basis.norms2, T_pre)
+    m_post, _ = substep_counts(coeffs_post, basis.norms1, T_post)
+    loops = torch.cat([m_pre.amax(0), m_post.amax(0)]).to(torch.int64).tolist() \
+        if B else [0] * (s + n_post)
+
+    jafs_pre = []
+    for t in range(s):
+        p0 = _select(sample_at[t], p0 @ basis.ancient.T, p0)
+        for pop in (0, 1):
+            if pulse_site[t, pop]:
+                p0 = (ss.pulse_operator(pu[:, t, pop], pop, basis.b2) @ p0[..., None])[..., 0]
+        p0, n1p = expm_action_pair(basis.k2, coeffs_pre[:, t], basis.norms2, T_pre[:, t], p0,
+                                   n_loop=loops[t])
+        cm = catmask[t] if catmask.dim() == 2 else catmask[:, t]
+        jafs_pre.append(cm * (n1p @ basis.jsfs2))
+
+    # ancient rebase exactly at the split happens before the collapse
+    p0 = _select(rebase, p0 @ basis.ancient.T, p0)
+    p0 = p0 @ basis.collapse.T  # (B, 8)
+
+    jafs_post = []
+    for t in range(n_post):
+        p0, n1p = expm_action_pair(basis.k1, coeffs_post[:, t], basis.norms1, T_post[:, t], p0,
+                                   n_loop=loops[s + t])
+        jafs_post.append(n1p @ basis.jsfs1)
+
+    # last interval, T = infinity: occupancy = -M^{-1} P0 (:530-540)
+    m_last = ss.one_pop_matrix(lc[:, s + n_post, 0], basis.b1)
+    occ_last, _ = torch.linalg.solve_ex(m_last, -p0)
+    jafs = occ_last @ basis.jsfs1
+    if jafs_post:
+        jafs = torch.stack(jafs_post).sum(0) + jafs
+    if jafs_pre:
+        jafs = torch.stack(jafs_pre).sum(0) + jafs
+    return jafs
+
+
+def _fold(x):
+    """Folded pairing (0,6) (1,5) (2,4) 3 (:600-605)."""
+    return torch.stack([x[..., 0] + x[..., 6], x[..., 1] + x[..., 5],
+                        x[..., 2] + x[..., 4], x[..., 3]], dim=-1)
+
+
+def multinomial_const(data, unfolded: bool):
+    """log n! - sum_i log d_i! of (B, 7) data spectra, per lane."""
+    n = data.sum(-1)
+    cats = data if unfolded else _fold(data)
+    return torch.lgamma(n + 1) - torch.lgamma(cats + 1).sum(-1)
+
+
+def multinomial_llh(jafs_raw, data, llh_const, unfolded: bool):
+    """Multinomial llh of an unnormalised spectrum (B, 7) against data (B, 7)
+    or (7,).  Returns (llh, normalised jafs, pos): llh holds where pos."""
+    norm = jafs_raw.sum(-1)
+    jafs = jafs_raw / norm[:, None]
+    cats, dat = (jafs, data) if unfolded else (_fold(jafs), _fold(data))
+    pos = (cats > 0).all(-1) & torch.isfinite(norm) & (norm > 0)
+    safe = torch.where(cats > 0, cats, torch.ones_like(cats))
+    return llh_const + (dat * torch.log(safe)).sum(-1), jafs, pos
 
 
 @dataclasses.dataclass
@@ -83,20 +279,16 @@ def build_likelihood(spec: ModelSpec, *, device=None, dtype=None) -> Likelihood:
     def tens(a):
         return torch.as_tensor(np.asarray(a, dtype=float), dtype=dt, device=dev)
 
-    b2 = ss.two_pop_basis()
-    b1 = ss.one_pop_basis()
     numT = spec.numT
     sd = spec.sample_date
-    n_post = numT - 1 - s
 
     times = np.asarray(spec.times, dtype=float)  # (numT-1,)
     lh = np.asarray(spec.lh, dtype=float)  # (numT, 2)
-    pre_T = times[:s]
-    post_T = times[s:numT - 1]
     # genome-2 categories are zeroed before the ancient sample exists
     # (MigrationInference.py:503-505)
     catmask = np.ones((s, 7))
     catmask[:sd, 2:] = 0.0
+    sample_at = [True if t == sd else None for t in range(s)]
 
     n_mi = len(spec.opt_mi)
     n_pu = len(spec.opt_pu)
@@ -110,9 +302,13 @@ def build_likelihood(spec: ModelSpec, *, device=None, dtype=None) -> Likelihood:
     mi_keep, pu_keep = tens(1.0 - mi_any), tens(1.0 - pu_any)
     mi_masks, pu_masks = tens(spec.mi_masks), tens(spec.pu_masks)
     lh_t = tens(lh)
-    pre_T_t, post_T_t = tens(pre_T), tens(post_T)
+    pre_T_t = tens(times[:s])
+    # the per-lane tables of the shared stages, with one lane
+    pre_T1, post_T1 = pre_T_t[None], tens(times[s:numT - 1])[None]
+    lh_post1, lh_last1 = lh_t[None, s:numT - 1], lh_t[None, numT - 1]
     catmask_t = tens(catmask)
     smooth_w = tens(spec.smooth_w) if (spec.smooth and s > 0) else None
+    basis = SpectrumBasis(dev, dt)
 
     def map_params(params):
         """MapParameters (MigrationInference.py:291-298): overwrite the
@@ -152,121 +348,17 @@ def build_likelihood(spec: ModelSpec, *, device=None, dtype=None) -> Likelihood:
             nc = p_after[:, -1].sum(-1)
             valid = (lc_pre > 0).all(-1).all(-1)
 
-        # post-split single-population fit (:355-370)
-        lh_post = lh_t[s:numT - 1]
-        if spec.cpfit or n_post == 0:
-            lc_post = []
-            for t in range(n_post):
-                T_t = post_T_t[t]
-                if spec.cpfit:
-                    # deviation form of :366: form pnc - 1 from expm1 masses
-                    # and take -log1p (f32-stable; the weight is O(1))
-                    ed = torch.exp(nc[:, 1] - nc[:, 0])
-                    dpnc = -(
-                        -torch.expm1(-T_t * lh_post[t, 0])
-                        + ed * -torch.expm1(-T_t * lh_post[t, 1])
-                    ) / (1.0 + ed)
-                    lam = -torch.log1p(dpnc) / (T_t if post_T[t] != 0 else 1.0)
-                if post_T[t] == 0:
-                    lam = torch.ones_like(nc[:, 0])  # reference :357-359
-                lc_t = torch.stack([lam, lam], dim=-1)
-                nc = nc - T_t * lc_t
-                lc_post.append(lc_t)
-            lc_post = (torch.stack(lc_post, dim=1) if lc_post
-                       else torch.zeros((B, 0, 2), dtype=dt, device=dev))
-            nc_fin = nc
-        else:
-            # Jacobi fixed point: given lc guesses, every nc is one cumsum
-            # and every interval's fit runs in one batched call
-            t_safe = torch.where(post_T_t == 0, torch.ones_like(post_T_t), post_T_t)
-            lc_post = lh_post.mean(dim=1, keepdim=True).expand(n_post, 2).expand(B, n_post, 2)
-            for _ in range(_POST_OUTERS):
-                dec = post_T_t[:, None] * lc_post  # (B, n_post, 2)
-                csum = torch.cumsum(dec, dim=1)
-                nc_t = nc[:, None, :] - torch.cat(
-                    [torch.zeros_like(csum[:, :1]), csum[:, :-1]], dim=1)
-                # shift by the per-interval max: ratio-invariant, immune to
-                # f32 exp underflow of the cumulative log no-coal mass
-                w = torch.exp(nc_t - nc_t.max(dim=-1, keepdim=True).values)
-                lam = fit_single_pop(lh_post.expand(B, n_post, 2), t_safe, w)
-                lam = torch.where(post_T_t == 0, torch.ones_like(lam), lam)
-                lc_post = torch.stack([lam, lam], dim=-1)
-            nc_fin = nc - (post_T_t[:, None] * lc_post).sum(1)
-
-        # last (infinite) interval: weighted harmonic mean (:371-376),
-        # max-shifted exp (the mean is invariant to the common factor)
-        m_nc = torch.maximum(nc_fin[:, 0], nc_fin[:, 1])
-        pr0 = torch.exp(nc_fin[:, 0] - m_nc)
-        pr1 = torch.exp(nc_fin[:, 1] - m_nc)
-        lam_last = (pr0 + pr1) / (pr0 / lh_t[numT - 1, 0] + pr1 / lh_t[numT - 1, 1])
+        lc_post, nc_fin = post_split_fit(nc, lh_post1, post_T1, cpfit=spec.cpfit)
+        lam_last = last_rate(nc_fin, lh_last1)
         lc_last = torch.stack([lam_last, lam_last], dim=-1)[:, None]
-
         if smooth_w is not None:
-            lc_pre = torch.stack(
-                [lc_pre[..., 0] @ smooth_w[0].T, lc_pre[..., 1] @ smooth_w[1].T], dim=-1)
+            lc_pre = smooth_rates(lc_pre, smooth_w)
         lc = torch.cat([lc_pre, lc_post, lc_last], dim=1)  # (B, numT, 2)
         return lc, pr, valid
 
-    # -- spectrum (JAFSpectrum, MigrationInference.py:467-506) --------------
-    #
-    # Only the action of E and N1 on the carried state is needed, so each
-    # interval is Taylor sub-stepping with (B, 44) @ (44, 176) basis products
-    # (kernels/expm.py `expm_action_pair`).
-
-    ancient = tens(b2.ancient)
-    collapse = tens(b2.collapse)
-    jsfs2 = tens(b2.jsfs)  # (44, 7)
-    jsfs1 = tens(b1.jsfs)  # (8, 7)
-    k2 = tens(np.concatenate(
-        [b2.coal[0].T, b2.coal[1].T, b2.migr[0].T, b2.migr[1].T], axis=1))  # (44, 176)
-    norms2 = tens(np.abs(np.stack(
-        [b2.coal[0], b2.coal[1], b2.migr[0], b2.migr[1]])).sum(axis=1).max(axis=1))
-    k1 = tens(b1.coal.T)  # (8, 8)
-    norms1 = tens(np.abs(b1.coal).sum(axis=0).max(keepdims=True))
-
     def spectrum(lc, mi, pu):
-        B = lc.shape[0]
-        p0 = torch.zeros((B, 44), dtype=dt, device=dev)
-        p0[:, 2] = 1.0
-        coeffs_pre = torch.cat([lc[:, :s], mi[:, :s]], dim=-1)  # (B, s, 4)
-        coeffs_post = lc[:, s:numT - 1, :1]  # (B, n_post, 1)
-        # sub-step loop bounds of every interval in one host read
-        m_pre, _ = substep_counts(coeffs_pre, norms2, pre_T_t[None])
-        m_post, _ = substep_counts(coeffs_post, norms1, post_T_t[None])
-        loops = torch.cat([m_pre.amax(0), m_post.amax(0)]).to(torch.int64).tolist() \
-            if B else [0] * (numT - 1)
-
-        jafs_pre = []
-        for t in range(s):
-            if t == sd:
-                p0 = p0 @ ancient.T
-            for pop in (0, 1):
-                if pulse_site[t, pop]:
-                    p0 = (ss.pulse_operator(pu[:, t, pop], pop, b2) @ p0[..., None])[..., 0]
-            p0, n1p = expm_action_pair(k2, coeffs_pre[:, t], norms2, pre_T_t[t], p0,
-                                       n_loop=loops[t])
-            jafs_pre.append(catmask_t[t] * (n1p @ jsfs2))
-
-        # ancient rebase exactly at the split happens before the collapse
-        if sd == s:
-            p0 = p0 @ ancient.T
-        p0 = p0 @ collapse.T  # (B, 8)
-
-        jafs_post = []
-        for t in range(n_post):
-            p0, n1p = expm_action_pair(k1, coeffs_post[:, t], norms1, post_T_t[t], p0,
-                                       n_loop=loops[s + t])
-            jafs_post.append(n1p @ jsfs1)
-
-        # last interval, T = infinity: occupancy = -M^{-1} P0 (:530-540)
-        m_last = ss.one_pop_matrix(lc[:, numT - 1, 0], b1)
-        occ_last, _ = torch.linalg.solve_ex(m_last, -p0)
-        jafs = occ_last @ jsfs1
-        if jafs_post:
-            jafs = torch.stack(jafs_post).sum(0) + jafs
-        if jafs_pre:
-            jafs = torch.stack(jafs_pre).sum(0) + jafs
-        return jafs
+        return jafs_spectrum(basis, lc, mi, pu, pre_T1, post_T1, catmask_t, sample_at,
+                             True if sd == s else None, pulse_site)
 
     # -- full likelihood ------------------------------------------------------
 
@@ -274,21 +366,8 @@ def build_likelihood(spec: ModelSpec, *, device=None, dtype=None) -> Likelihood:
         nonneg = (params >= 0).all(-1)
         mi, pu = map_params(params)
         lc, pr, valid_corr = correct(mi, pu)
-        jafs_raw = spectrum(lc, mi, pu)
-        norm = jafs_raw.sum(-1)
-        jafs = jafs_raw / norm[:, None]
-        if spec.unfolded:
-            cats, dat = jafs, data
-        else:
-            # folded pairing (0,6) (1,5) (2,4) 3 (:600-605)
-            def fold(x):
-                return torch.stack([x[..., 0] + x[..., 6], x[..., 1] + x[..., 5],
-                                    x[..., 2] + x[..., 4], x[..., 3]], dim=-1)
-
-            cats, dat = fold(jafs), fold(data)
-        pos = (cats > 0).all(-1) & torch.isfinite(norm) & (norm > 0)
-        safe = torch.where(cats > 0, cats, torch.ones_like(cats))
-        llh = llh_const + (dat * torch.log(safe)).sum(-1)
+        llh, jafs, pos = multinomial_llh(spectrum(lc, mi, pu), data, llh_const,
+                                         spec.unfolded)
         valid = nonneg & valid_corr & pos
         llh = torch.where(valid, llh, torch.full_like(llh, -float("inf")))
         # Report() counters (MigrationInference.py:306,336,347,567): "called"
@@ -325,14 +404,7 @@ def build_likelihood(spec: ModelSpec, *, device=None, dtype=None) -> Likelihood:
         d = torch.as_tensor(np.asarray(data7, dtype=float) if not torch.is_tensor(data7)
                             else data7).to(device=dev, dtype=dt)
         d = d.expand(p.shape[0], 7)
-        n = d.sum(-1)
-        if spec.unfolded:
-            const = torch.lgamma(n + 1) - torch.lgamma(d + 1).sum(-1)
-        else:
-            pairs = torch.stack([d[:, 0] + d[:, 6], d[:, 1] + d[:, 5],
-                                 d[:, 2] + d[:, 4], d[:, 3]], dim=-1)
-            const = torch.lgamma(n + 1) - torch.lgamma(pairs + 1).sum(-1)
-        llh = _core(p, d, const)[0]
+        llh = _core(p, d, multinomial_const(d, spec.unfolded))[0]
         return llh[0] if single else llh
 
     def llh_flags(params):

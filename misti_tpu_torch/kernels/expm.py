@@ -88,7 +88,9 @@ def expm_action_pair(kmat: torch.Tensor, coeffs: torch.Tensor, basis_norms,
     """(E p0, N1 p0) for M = sum_c coeffs[:, c] * B_c without forming E or N1.
 
     ``kmat`` = [B_0^T | ... | B_{c-1}^T] (n, c*n), ``coeffs`` (B, c), ``p0``
-    (B, n), ``t`` a scalar interval length.  Each lane covers the interval
+    (B, n), ``t`` the interval length: a scalar or one per lane, (B,) (the
+    grid sweep's per-lane tables).  A lane with t == 0 takes one sub-step of
+    zero length and returns p0 and 0 exactly.  Each lane covers the interval
     in m = ceil(||M t||_1 / theta) sub-steps of the degree-``degree`` series
     for (e^b, phi1(b)), b = M t / m.  The JAX version's per-lane while loop
     is a loop to max(m) here, each lane masked by j < m.  Past

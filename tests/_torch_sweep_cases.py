@@ -1,4 +1,6 @@
-"""Shared inputs for the fused-sweep parity tests (tests/test_torch_correction_*.py).
+"""Shared inputs for the fused-sweep parity tests (tests/test_torch_correction_*.py),
+and the one-thread fixture of the sweep tests (tests/test_torch_sweep*.py,
+tests/test_torch_optimize.py).
 
 One seeded numpy draw goes to both packages: the JAX package's CPU form of
 the kernel (``build_fused_correction(..., mode="xla")``) and the port's plain
@@ -7,6 +9,7 @@ version, at s = 6 intervals and B = 5 lanes.
 
 import jax
 import numpy as np
+import pytest
 import torch
 
 from misti_tpu.kernels.correction_pallas import build_fused_correction
@@ -57,3 +60,13 @@ def assert_sweeps_agree(lh, times, mi, pu, **opts):
     np.testing.assert_allclose(lc_t, lc_j, rtol=1e-6, atol=1e-9)
     np.testing.assert_allclose(pa_t, pa_j, rtol=1e-6, atol=1e-9)
     return lc_t
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread for a module's torch ops: its tensors are small,
+    so more threads only crowd the other test workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)

@@ -1,5 +1,5 @@
-"""The port stands alone: importing misti_tpu_torch and running a likelihood
-loads neither jax nor any module of misti_tpu, and its entry points default
+"""The port stands alone: importing misti_tpu_torch and running a likelihood,
+a bootstrap sweep and the sweep CLI loads neither jax nor any module of misti_tpu, and its entry points default
 to the GPU (raising without one) instead of quietly picking the CPU.
 
 The import check runs in a subprocess: this test process has jax loaded
@@ -26,6 +26,20 @@ spec = build_spec([0.1, 0.2, 0.3, 0.4], [[1.0, 1.5], [0.8, 1.2], [1.1, 0.9],
                   [[1, 0, 2, 0.2, 1]], [], cpfit=True, unfolded=True)
 llh = float(build_likelihood(spec, device="cpu").llh(np.array([0.2])))
 assert np.isfinite(llh), llh
+
+from misti_tpu_torch.engine import bootstrap
+from misti_tpu_torch.cli import sweep as cli
+
+res = bootstrap.sweep([0.1, 0.2, 0.3, 0.4], [[1.0, 1.5], [0.8, 1.2], [1.1, 0.9],
+                      [1.0, 1.0], [1.2, 1.2]], [[50, 20, 40, 10, 8, 5, 3]], [2, 3],
+                      [[1, 0, "ST", 0.2, 1]], device="cpu", maxiter=3, cpfit=True,
+                      unfolded=True)
+assert np.isfinite(res.llh).all(), res.llh
+fix = "tests/fixtures/"
+rc = cli.main([fix + "synth1.psmc", fix + "synth2.psmc", fix + "synth.jsfs", "--splits",
+               "7", "7", "-bs", "0", "-mi", "1", "2", "ST", "0.3", "1", "-uf", "--cpfit",
+               "--funits", "/nonexistent", "--platform", "cpu", "--maxiter", "2"])
+assert rc == 0, rc
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "misti_tpu"
              or m.startswith("misti_tpu."))
