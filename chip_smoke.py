@@ -23,7 +23,15 @@ Phases, each fatal on failure:
      ``--maxiter 256`` and ECT, each held against the JAX package's table of
      the same command (scripts/sweep1band_r05_cap256.npz,
      scripts/sweep_ect_r05.npz), with the per-lane kernel timed at the
-     sweep's first-stage width and a small staged-vs-uninterrupted ECT sweep.
+     sweep's first-stage width and a small staged-vs-uninterrupted ECT sweep;
+  7. the single-fit path in float64 through the port's CLIs
+     (``misti_tpu_torch.cli.misti`` / ``cli.testmodel`` ``main``, default
+     platform): upstream's fits of tests/test_cli.py against its .mi files
+     and --debug golden, the north-star command at split 24 (cpfit, ECT, and
+     cpfit with one optimised pulse) against the JAX package's CPU float64
+     fits (tests/fixtures/torch_single_fit_ref.json) with per-fit timings,
+     launches per objective call and the kernel at that instance, and the
+     testmodel README oracle.
 Prints each phase's wall, a ``kernels`` JSON line, the card's name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``.  Exits nonzero
 without a card.
@@ -39,6 +47,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -58,14 +67,60 @@ PER_LANE_S, PER_LANE_B = 27, (6, 4851)
 SWEEP_SPLITS = [float(v) for v in range(20, 28)]
 SWEEP_MI = [["1", "4", "ST", "3", "1"]]
 SWEEP_REPLICATES = 100
+STAGED_MAXITER = 64  # the iteration cap of phase 6's staged-vs-uninterrupted check
 SWEEP_RUNS = (  # (mode, spec flags, --maxiter, the JAX package's table)
     ("cpfit", dict(cpfit=True), 256, "scripts/sweep1band_r05_cap256.npz"),
     ("ect", dict(cpfit=False), 1000, "scripts/sweep_ect_r05.npz"),
 )
+# the single-fit path of phase 7: tests/test_cli.py's commands on the synth
+# fixtures (after the three input files; default platform, i.e. the card),
+# each with upstream's .mi, and its --debug golden
+_UNITS = ["--funits", "/nonexistent"]
+UPSTREAM_FITS = (
+    ("ref_fit", ["8", "-uf", "-mi", "1", "2", "8", "0.3", "1", "-bs", "0"] + _UNITS,
+     "ref_fit.mi"),
+    ("ref_fit_pu", ["8", "-uf", "-pu", "2", "4", "0.2", "1", "-pu", "1", "6", "0.1", "0",
+                    "--cpfit", "-bs", "0"] + _UNITS, "ref_fit_pu.mi"),
+    ("ref_fit_sdate", ["8", "-uf", "--sdate", "80", "-mi", "1", "4", "8", "0.3", "1", "-bs",
+                       "0"] + _UNITS, "ref_fit_sdate.mi"),
+)
+DEBUG_ARGS = ["8", "-uf", "-mi", "1", "2", "8", "0.3", "0", "-bs", "0", "--debug"] + _UNITS
+# the JAX package's CPU float64 fits of the north-star command at split 24
+# (scripts/make_torch_single_fit_ref.py)
+SINGLE_FIT_REF = "tests/fixtures/torch_single_fit_ref.json"
+README_MS = ("-n 1 10 -n 2 4.5 -eN 0.025 0.2 -ej 0.045 2 1 -eN 0.175 3 "
+             "-eN 0.625 1.8 -eN 3 3.2 -eN 8 5.5")
+README_LLH = -5.6330938966336905
+README_JSFS = [0.229988, 0.082942, 0.228294, 0.131016, 0.121698, 0.083215, 0.122846]
 
 
 def log(*a):
     print(*a, flush=True)
+
+
+def parse_fit_stdout(lines) -> dict:
+    """The numbers of a single-fit CLI run's stdout (either package's):
+    the estimate line's parameters and llh, the solver summary's iterations
+    and evaluations, and the Report() counters (which include the -bs 0
+    re-evaluation)."""
+
+    def grab(prefix):
+        hits = [ln for ln in lines if ln.startswith(prefix)]
+        require(len(hits) == 1, f"expected one line starting {prefix!r}, got {len(hits)}")
+        return hits[0]
+
+    est = grab("bs_id =")
+    m = re.search(r"optim = \[(.*?)\]", est)
+    return {
+        "x": [float(v) for v in m.group(1).split(", ")] if m else [],
+        "llh": float(est.rsplit("llh =", 1)[1]),
+        "converged": any(ln == "Optimization terminated successfully." for ln in lines),
+        "nit": int(grab("         Iterations:").split()[-1]),
+        "nfev": int(grab("         Function evaluations:").split()[-1]),
+        "calls": int(grab("Total number of likelihood function calls is").split()[-1]),
+        "corr_called": int(grab("Lambda correction called").split()[-2]),
+        "corr_failed": int(grab("Lambda correction failed").split()[-2]),
+    }
 
 
 def require(ok, msg):
@@ -509,12 +564,15 @@ def phase_sweep(cf, torch, dev):
             f"({cells * 6} lanes), {ms_narrow:.1f} ms at {narrow} cells ({narrow * 6} lanes)")
         records.append(_sweep_kernel_record(cf, torch, fs, points, st_all, launches, mode))
 
-    # staged against uninterrupted, on the card: splits 24-25 x 8 rows, ECT
+    # staged against uninterrupted, on the card: splits 24-25 x 8 rows, ECT,
+    # both capped at STAGED_MAXITER iterations (~0.5 s each at this width: a
+    # cell stuck on a float32 ECT jump, ROADMAP C1, would otherwise run to
+    # 1000 in both runs)
     rows = data[:8]
-    kw = dict(common, cpfit=False)
+    kw = dict(common, cpfit=False, maxiter=STAGED_MAXITER)
     with contextlib.redirect_stderr(io.StringIO()):
         r1 = bootstrap.sweep(inp.times, inp.lambdas, rows, [24.0, 25.0], SWEEP_MI, (),
-                             phase1_maxiter=10_000, **kw)
+                             phase1_maxiter=STAGED_MAXITER, **kw)
         r2 = bootstrap.sweep(inp.times, inp.lambdas, rows, [24.0, 25.0], SWEEP_MI, (),
                              stage_caps=(4, 8, 16), **kw)
     bitwise = (np.array_equal(r1.llh, r2.llh) and np.array_equal(r1.params, r2.params)
@@ -523,9 +581,206 @@ def phase_sweep(cf, torch, dev):
     require(np.array_equal(r1.converged, r2.converged), "staged sweep: converged flags differ")
     require(np.array_equal(r1.llh.argmax(0), r2.llh.argmax(0)), "staged sweep: argmax differs")
     require(d <= 1e-4, f"staged sweep: max |dllh| {d} > 1e-4")
-    log(f"sweep staged (caps 4 8 16) vs uninterrupted, ECT, splits 24-25 x 8 rows, float32: "
-        f"bitwise {bitwise}, max |dllh| {d:.3e}, cells with different nfev "
-        f"{int((r1.nfev != r2.nfev).sum())}")
+    log(f"sweep staged (caps 4 8 16 {STAGED_MAXITER}) vs uninterrupted, ECT, splits 24-25 x 8 "
+        f"rows, float32: bitwise {bitwise}, max |dllh| {d:.3e}, cells with different nfev "
+        f"{int((r1.nfev != r2.nfev).sum())}, unconverged {int((~r1.converged).sum())}, "
+        f"max nfev {int(r1.nfev.max())}")
+    return records
+
+
+def _run_cli(main, argv):
+    """A CLI's ``main(argv)`` with its stdout captured: (rc, lines, wall s)."""
+    buf = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    return rc, buf.getvalue().splitlines(), time.perf_counter() - t
+
+
+def _check_mi(name, ours, ref, pr_rtol=1e-3, pr_atol=1e-6):
+    """tests/test_cli.py's tolerances for a fit's .mi against upstream's.
+    Returns each field's largest error as a share of its tolerance."""
+    checks = [("llh", [ours.llh], [ref.llh], 2e-6, 0.0),
+              ("jafs", ours.jafs, ref.jafs, 5e-5, 1e-7),
+              ("lambda1", ours.lambda1, ref.lambda1, 5e-4, 0.0),
+              ("lambda2", ours.lambda2, ref.lambda2, 5e-4, 0.0),
+              ("pr11", ours.pr11, ref.pr11, pr_rtol, pr_atol)]
+    require(ours.split_t == ref.split_t and ours.sample_date == ref.sample_date,
+            f"{name}: split or sample date differs from upstream's")
+    worst = {}
+    for field, a, b, rtol, atol in checks:
+        a, b = np.asarray(a, float), np.asarray(b, float)
+        require(a.shape == b.shape and np.allclose(a, b, rtol=rtol, atol=atol),
+                f"{name}: {field} beyond rtol {rtol} atol {atol} of upstream's")
+        worst[field] = float(np.max(np.abs(a - b) / (atol + rtol * np.abs(b))))
+    return worst
+
+
+def _single_fit_lik(torch, dev, argv):
+    """The likelihood the single-fit CLI builds for a north-star command
+    (split 24, bootstrap row 0, smoothing on, unfolded)."""
+    from misti_tpu_torch import build_likelihood, build_spec
+    from misti_tpu_torch.io import jsfs as io_jsfs
+    from misti_tpu_torch.io import psmc as io_psmc
+
+    fix = os.path.join(HERE, "tests", "fixtures")
+    data = io_psmc.read_psmc(os.path.join(fix, "sweep1.psmc"), os.path.join(fix, "sweep2.psmc"),
+                             0, -1)
+    sfs = list(io_jsfs.read_jafs(os.path.join(fix, "sweep.jsfs")).jafs[0])
+    mi = [argv[i + 1:i + 6] for i, a in enumerate(argv) if a == "-mi"]
+    pu = [argv[i + 1:i + 5] for i, a in enumerate(argv) if a == "-pu"]
+    spec = build_spec(data.times, data.lambdas, sfs, 24, mi, pu, cpfit="--cpfit" in argv,
+                      smooth=True, unfolded=True, sample_date=data.sample_date_discr,
+                      thrh=(data.theta, data.rho))
+    return build_likelihood(spec, device=dev, dtype=torch.float64)
+
+
+def _objective_launches(torch, lik, points) -> int:
+    """CUDA kernel launches of one objective call (torch.profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    lik.llh_flags_batch(points)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        lik.llh_flags_batch(points)
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
+
+
+def phase_single_fit(cf, torch, dev):
+    """The single-fit path on the card, float64, through the port's CLIs:
+    upstream's fits (tests/test_cli.py's commands) against its .mi files and
+    --debug golden; the north-star command at split 24 (cpfit, ECT, cpfit
+    with one optimised pulse) against the JAX package's CPU float64 fits
+    (SINGLE_FIT_REF); the testmodel README oracle.  Returns the kernel
+    records of the north-star fits' instances."""
+    from misti_tpu_torch.cli import misti, testmodel
+    from misti_tpu_torch.io import mi_format
+    from misti_tpu_torch.io.units import Units
+
+    fix = os.path.join(HERE, "tests", "fixtures")
+    synth = [os.path.join(fix, f) for f in ("synth1.psmc", "synth2.psmc", "synth.jsfs")]
+    records = []
+    with tempfile.TemporaryDirectory() as tmp:
+        # a. upstream's own fits
+        for name, args, ref_file in UPSTREAM_FITS:
+            Units.reset()
+            out_mi = os.path.join(tmp, name + ".mi")
+            cf.correction_sweep.launches = 0
+            rc, lines, wall = _run_cli(misti.main, synth + args + ["-o", out_mi])
+            launches = cf.correction_sweep.launches
+            require(rc == 0, f"{name}: rc {rc}")
+            fit = parse_fit_stdout(lines)
+            require(launches == fit["nit"] + 1,
+                    f"{name}: {launches} kernel launches for {fit['nit'] + 1} objective calls")
+            worst = _check_mi(name, mi_format.read_migration(out_mi),
+                              mi_format.read_migration(os.path.join(fix, ref_file)))
+            log(f"single fit {name} (float64, card): x {fit['x']} llh {fit['llh']!r}, nit "
+                f"{fit['nit']} nfev {fit['nfev']} calls {fit['calls']} corr {fit['corr_called']}/"
+                f"{fit['corr_failed']}, {launches} kernel launches, {wall:.2f} s; largest error "
+                f"against upstream's .mi as a share of its tolerance {json.dumps(worst)}")
+
+        Units.reset()
+        ref_lines = open(os.path.join(fix, "ref_debug_stdout.txt")).read().splitlines()
+        cf.correction_sweep.launches = 0
+        rc, lines, wall = _run_cli(misti.main, synth + DEBUG_ARGS)
+        launches = cf.correction_sweep.launches
+        require(rc == 0, f"debug golden: rc {rc}")
+
+        def grab(ls, prefix):
+            hits = [ln for ln in ls if ln.startswith(prefix)]
+            require(len(hits) == 1, f"debug golden: no single line {prefix!r}")
+            return hits[0]
+
+        ours, ref = grab(lines, "bs_id ="), grab(ref_lines, "bs_id =")
+        require(ours.rsplit("llh =", 1)[0] == ref.rsplit("llh =", 1)[0],
+                "debug golden: estimate line differs before the llh")
+        d_llh = abs(float(ours.rsplit("llh =", 1)[1]) / float(ref.rsplit("llh =", 1)[1]) - 1)
+        require(d_llh <= 2e-6, f"debug golden: llh off by {d_llh:.3e} relative")
+        for prefix in ("Total number of likelihood function calls is",
+                       "Lambda correction called", "Lambda correction failed"):
+            require(grab(lines, prefix) == grab(ref_lines, prefix),
+                    f"debug golden: {prefix!r} line differs")
+        require(launches == 3, f"debug golden: {launches} kernel launches, expected 3")
+        log(f"single fit debug golden (float64, card): estimate line and Report() lines as "
+            f"upstream's, llh rel diff {d_llh:.3e}, {launches} kernel launches, {wall:.2f} s")
+
+        # b. the north-star command as one user fit, against the JAX package's
+        with open(os.path.join(HERE, SINGLE_FIT_REF)) as f:
+            jax_fits = json.load(f)["fits"]
+        for name, ref in jax_fits.items():
+            Units.reset()
+            argv = [os.path.join(HERE, a) if a.startswith("tests/") else a for a in ref["argv"]]
+            out_mi = os.path.join(tmp, name + ".mi")
+            cf.correction_sweep.launches = 0
+            torch.cuda.synchronize()
+            rc, lines, wall = _run_cli(misti.main, argv + ["-o", out_mi])
+            launches = cf.correction_sweep.launches
+            require(rc == 0, f"north-star {name}: rc {rc}")
+            fit = parse_fit_stdout(lines)
+            calls = fit["nit"] + 1  # the simplex's calls and the -bs 0 re-evaluation
+            require(launches == calls,
+                    f"north-star {name}: {launches} kernel launches for {calls} objective calls")
+            d_llh = abs(fit["llh"] / ref["llh"] - 1)
+            d_x = max(abs(a - b) for a, b in zip(fit["x"], ref["x"]))
+            require(len(fit["x"]) == len(ref["x"]) and d_x <= 1e-3,
+                    f"north-star {name}: x {fit['x']} vs the JAX package's {ref['x']}")
+            require(d_llh <= 1e-6, f"north-star {name}: llh {fit['llh']} vs {ref['llh']}")
+            counters = {k: (fit[k], ref[k]) for k in ("nit", "nfev", "calls", "corr_called",
+                                                     "corr_failed")}
+
+            lik = _single_fit_lik(torch, dev, argv)
+            x = torch.tensor(ref["x"], dtype=torch.float64, device=dev)
+            n = x.numel()
+            # an iteration's n + 5 trial points around the optimum
+            points = x * (1.0 + 0.01 * torch.arange(n + 5, dtype=torch.float64,
+                                                    device=dev))[:, None]
+            per_call = _objective_launches(torch, lik, points)
+            s = lik.spec.splitT
+            mi, pu = lik.map_params(points)
+            inp = cf.sweep_inputs(mi[:, :s], pu[:, :s], *lik.sweep_tables)
+            opts = lik.sweep_opts
+            err = check_close(f"north-star {name} sweep", cf.correction_sweep(inp, **opts),
+                              cf.correction_sweep_plain(inp, **opts), 1e-6, 1e-9)
+            k_ms = cuda_ms(lambda: cf.correction_sweep(inp, **opts), 20)
+            p_ms = cuda_ms(lambda: cf.correction_sweep_plain(inp, **opts), 1)
+            B = inp.shape[2]
+            work = cf.sweep_work(inp, **opts)
+            ops = cf.sweep_ops(work, s, B, **opts)
+            nbytes = 15 * s * B * inp.element_size()
+            t_ops, t_bytes = ops / PEAK_OPS["float64"], nbytes / HBM_BYTES_PER_S
+            rec = {"name": f"correction_sweep_{name}_single_fit_f64", "route": "cuda",
+                   "source": SOURCE, "replaces": REPLACES, "launches": launches,
+                   "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+                   "bound_ms": max(t_ops, t_bytes) * 1e3,
+                   "bound_by": "operations" if t_ops >= t_bytes else "bytes", "library_ms": None}
+            rec["share_of_bound"] = rec["bound_ms"] / k_ms
+            records.append(rec)
+            log(f"north-star {name} (float64, card): x {fit['x']} llh {fit['llh']!r}; JAX "
+                f"package x {ref['x']} llh {ref['llh']!r}; rel dllh {d_llh:.3e}, max |dx| "
+                f"{d_x:.3e}; (card, JAX) {json.dumps(counters)}; converged {fit['converged']}")
+            log(f"north-star {name} timing: {wall:.3f} s wall, {calls} objective calls, "
+                f"{wall / calls * 1e3:.1f} ms per objective call, {fit['calls'] / wall:.1f} "
+                f"evals/s, {per_call} kernel launches per objective call ({n + 5} lanes); "
+                f"correction kernel at s = {s}, B = {B}, float64, shared tables: {k_ms:.4f} ms, "
+                f"plain {p_ms:.1f} ms, bound {rec['bound_ms']:.5f} ms ({rec['bound_by']}; "
+                f"{ops:.3e} ops, {nbytes} bytes), {rec['share_of_bound']:.1%} of bound, "
+                f"max|d| {err:.3e}")
+
+        # c. the testmodel README oracle
+        Units.reset()
+        out_mi = os.path.join(tmp, "tm.mi")
+        rc, lines, wall = _run_cli(testmodel.main, [README_MS, "-uf", "-o", out_mi,
+                                                    "--funits", "/nonexistent"])
+        require(rc == 1, f"testmodel: rc {rc} (the reference's is 1)")
+        tm = mi_format.read_migration(out_mi)
+        d_llh = abs(tm.llh / README_LLH - 1)
+        d_jafs = float(np.max(np.abs(np.asarray(tm.jafs) - README_JSFS)))
+        require(d_llh <= 1e-10, f"testmodel: llh {tm.llh!r}, README's {README_LLH!r}")
+        require(d_jafs <= 1e-6, f"testmodel: expected JSFS off the README's by {d_jafs:.3e}")
+        log(f"testmodel README oracle (float64, card): llh {tm.llh!r} (rel diff {d_llh:.3e}), "
+            f"max |dJSFS| {d_jafs:.3e} against the README's, {wall:.2f} s")
     return records
 
 
@@ -565,6 +820,7 @@ def main() -> int:
     phase("4 real inputs", phase_real_inputs, torch, dev)
     phase("5 log", phase_log, torch, dev)
     kernels += phase("6 sweep path", phase_sweep, cf, torch, dev)
+    kernels += phase("7 single fit", phase_single_fit, cf, torch, dev)
     log(f"chip_smoke: {time.perf_counter() - t0:.1f} s wall in all")
 
     log("kernels " + json.dumps({"kernels": kernels}))

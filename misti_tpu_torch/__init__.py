@@ -6,6 +6,8 @@ the CPU.  Entry points take ``device`` (default CUDA) and ``dtype``.
 """
 
 from .engine.likelihood import Likelihood, build_likelihood
+from .engine.optimize import SolveResult, solve
 from .engine.spec import ModelSpec, build_spec, params_from_jax
 
-__all__ = ["Likelihood", "ModelSpec", "build_likelihood", "build_spec", "params_from_jax"]
+__all__ = ["Likelihood", "ModelSpec", "SolveResult", "build_likelihood", "build_spec",
+           "params_from_jax", "solve"]

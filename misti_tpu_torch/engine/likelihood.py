@@ -252,6 +252,7 @@ class Likelihood:
     llh_batch: Callable  # params (B, n_par) -> (B,) llh
     llh_data: Callable  # (params (B, n_par), data7 (B, 7)) -> (B,) llh
     llh_flags: Callable  # params (n_par,) -> (llh, [corr_called, corr_failed])
+    llh_flags_batch: Callable  # params (B, n_par) -> (llh (B,), flags (B, 2))
     # the stages, batch-first, for timing them apart
     map_params: Callable  # params (B, n_par) -> (mi, pu) (B, numT, 2)
     correct: Callable  # (mi, pu) -> (lc (B, numT, 2), pr, valid (B,))
@@ -407,15 +408,22 @@ def build_likelihood(spec: ModelSpec, *, device=None, dtype=None) -> Likelihood:
         llh = _core(p, d, multinomial_const(d, spec.unfolded))[0]
         return llh[0] if single else llh
 
-    def llh_flags(params):
-        """(llh, counter vector) for the optimiser's Report() accumulation."""
-        llh, aux = llh_aux(params)
-        flags = torch.stack([aux["corr_called"], aux["corr_failed"]])
+    def llh_flags_batch(params):
+        """(llh (B,), Report() counters (B, 2): corr_called, corr_failed) for
+        the optimiser's per-evaluation accumulation."""
+        llh, aux = _core(as_params(params), data_t, spec.llh_const)
+        flags = torch.stack([aux["corr_called"], aux["corr_failed"]], dim=-1)
         return llh, flags.to(dt)
+
+    def llh_flags(params):
+        """`llh_flags_batch` of one parameter vector: (llh, counters (2,))."""
+        llh, flags = llh_flags_batch(params)
+        return llh[0], flags[0]
 
     return Likelihood(
         spec=spec, device=dev, dtype=dt, llh=llh_only, llh_aux=llh_aux,
         llh_batch=llh_batch, llh_data=llh_data, llh_flags=llh_flags,
+        llh_flags_batch=llh_flags_batch,
         map_params=lambda params: map_params(as_params(params)),
         correct=correct, spectrum=spectrum, sweep_tables=(lh_t[:s], pre_T_t),
         sweep_opts=sweep_opts,

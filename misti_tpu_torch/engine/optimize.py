@@ -15,14 +15,15 @@ standalone fits.
 Infinite objectives (llh = -inf failures) are ordinary large values, as in
 scipy; convergence also needs a finite best vertex.
 
-``solve`` (single fit, scipy-style summary, basin-hopping) is not here yet:
-it belongs with the single-fit CLI.
+``solve`` is the single fit on top of it (B = 1): the scipy disp-style
+summary, the Report() counters and the host basin-hopping loop.
 """
 
 from __future__ import annotations
 
 from typing import Callable, NamedTuple
 
+import numpy as np
 import torch
 
 _RHO = 1.0  # reflection
@@ -77,6 +78,29 @@ def _converged(sim, fsim, xatol, fatol):
     # inf - inf = nan compares False: not converged, like scipy
     fconv = (fsim[:, :1] - fsim[:, 1:]).abs().amax(dim=1) <= fatol
     return xconv & fconv & torch.isfinite(fsim[:, 0])
+
+
+def _fused_mul_add(c: float, x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """c * x + t rounded once, as a fused multiply-add rounds it, for a
+    constant ``c`` of at most a few significant bits.
+
+    XLA:CPU contracts the JAX package's expansion and outer-contraction
+    vertices (3 xbar - 2 x_n, 1.5 xbar - 0.5 x_n) into fused multiply-adds;
+    two roundings put those points an ulp away, which flips the trial
+    value between finite and +inf where the simplex meets the x >= 0
+    boundary, and the two fits then part.  Here the product is split exactly
+    (Dekker: c * x = p + e) and the sums are compensated (Knuth's TwoSum:
+    p + t = s + r), so s + (r + e) is the once-rounded value unless
+    r + e itself rounds at a tie of s's last place."""
+    p = c * x
+    big = 134217729.0 if x.dtype == torch.float64 else 4097.0  # 2^ceil(m/2) + 1
+    g = big * x
+    xh = g - (g - x)
+    e = (xh * c - p) + (x - xh) * c
+    s = p + t
+    tv = s - p
+    r = (p - (s - tv)) + (t - tv)
+    return s + (r + e)
 
 
 def _sel(mask, a, b):
@@ -146,8 +170,8 @@ def nelder_mead(
         best, worst = sim[:, 0], sim[:, -1]
         xbar = sim[:, :-1].sum(dim=1) / n
         xr = (1 + _RHO) * xbar - _RHO * worst
-        xe = (1 + _RHO * _CHI) * xbar - _RHO * _CHI * worst
-        xc = (1 + _PSI * _RHO) * xbar - _PSI * _RHO * worst
+        xe = _fused_mul_add(1 + _RHO * _CHI, xbar, -_RHO * _CHI * worst)
+        xc = _fused_mul_add(1 + _PSI * _RHO, xbar, -_PSI * _RHO * worst)
         xcc = (1 - _PSI) * xbar + _PSI * worst
         shrunk = best[:, None] + _SIGMA * (sim - best[:, None])
         points = torch.cat([torch.stack([xr, xe, xc, xcc], dim=1), shrunk], dim=1)
@@ -189,6 +213,116 @@ def nelder_mead(
     if with_state:
         return res, NMState(sim=sim, fsim=fsim, it=it, nfev=nfev, aux_sum=aux_sum)
     return res
+
+
+class SolveResult:
+    """Fit result that unpacks like the reference's ``[params, llh]`` pair
+    and carries the run's Report() counters (MigrationInference.py:36-38,
+    735-739)."""
+
+    def __init__(self, x, llh, nit=0, nfev=0, corr_called=0, corr_failed=0):
+        self.x = np.asarray(x)
+        self.llh = float(llh)
+        self.nit = int(nit)
+        self.nfev = int(nfev)
+        self.corr_called = int(corr_called)
+        self.corr_failed = int(corr_failed)
+
+    def __iter__(self):
+        return iter((self.x, self.llh))
+
+    def __getitem__(self, i):
+        return (self.x, self.llh)[i]
+
+    def __len__(self):
+        return 2
+
+    def __repr__(self):
+        # print(sol) renders as the reference's [params, llh] list (MiSTI.py:215)
+        return repr([self.x, self.llh])
+
+
+def solve(lik, tol: float = 1e-4, global_opt: bool = False, seed: int = 0,
+          trace: bool = False, n_hops: int = 100) -> SolveResult:
+    """Reference ``Solve`` (MigrationInference.py:718-733): maximise the llh.
+
+    One lockstep `nelder_mead` lane over ``lik.llh_flags_batch``: each
+    iteration's n+5 trial points are one objective call, and the Report()
+    counters (``nfev``, ``corr_called``, ``corr_failed``) are summed over
+    every evaluated point.  With no optimised parameters it evaluates once.
+    ``global_opt`` runs basin-hopping on the host around the fit (T = 0.5,
+    scipy's AdaptiveStepsize schedule, ``np.random.default_rng(seed)``), like
+    the reference's scipy.optimize.basinhopping call.  ``trace`` prints every
+    evaluated point as ``<p> <-llh>`` (MigrationInference.py:713-716), on the
+    CPU only: a per-point host print would serialize a fit on the card.
+    """
+    spec = lik.spec
+    trace = trace and lik.device.type == "cpu"
+    if spec.n_params == 0:
+        llh, flags = lik.llh_flags(np.zeros(0))
+        return SolveResult(np.zeros(0), float(llh), nfev=1,
+                           corr_called=int(flags[0]), corr_failed=int(flags[1]))
+
+    def obj(points):
+        B, P, n = points.shape
+        flat = points.reshape(B * P, n)
+        llh, flags = lik.llh_flags_batch(flat)
+        if trace:
+            for p, f in zip(flat.cpu().numpy(), (-llh).cpu().numpy()):
+                print(p, f)
+        return -llh.reshape(B, P), flags.reshape(B, P, 2)
+
+    def nm(x0):
+        x0 = torch.as_tensor(np.asarray(x0, float), dtype=lik.dtype, device=lik.device)
+        return nelder_mead(obj, x0[None], xatol=tol, fatol=tol, naux=2)
+
+    def record(x, f, res_list):
+        return SolveResult(
+            x, -f,
+            nit=sum(int(r.nit[0]) for r in res_list),
+            nfev=sum(int(r.nfev[0]) for r in res_list),
+            corr_called=sum(int(r.aux_sum[0, 0]) for r in res_list),
+            corr_failed=sum(int(r.aux_sum[0, 1]) for r in res_list),
+        )
+
+    if not global_opt:
+        res = nm(spec.init_params)
+        # scipy disp-style summary (the reference passes disp=True)
+        if bool(res.converged[0]):
+            print("Optimization terminated successfully.")
+        else:
+            print("Maximum number of iterations has been exceeded.")
+        print(f"         Current function value: {float(res.fun[0]):f}")
+        print(f"         Iterations: {int(res.nit[0])}")
+        print(f"         Function evaluations: {int(res.nfev[0])}")
+        return record(res.x[0].cpu().numpy(), float(res.fun[0]), [res])
+
+    # basin-hopping: random displacement + Metropolis accept at T=0.5, with
+    # scipy's AdaptiveStepsize schedule (interval=50, factor=0.9, target
+    # accept rate 0.5)
+    rng = np.random.default_rng(seed)
+    temp = 0.5
+    stepsize = 0.5
+    interval, factor, target_accept = 50, 0.9, 0.5
+    naccept = 0
+    res = nm(spec.init_params)
+    all_res = [res]
+    best_x, best_f = res.x[0].cpu().numpy(), float(res.fun[0])
+    cur_x, cur_f = best_x, best_f
+    for step in range(1, n_hops + 1):
+        if step % interval == 0:
+            stepsize = (stepsize / factor if naccept / step > target_accept
+                        else stepsize * factor)
+        trial = cur_x + rng.uniform(-stepsize, stepsize, size=cur_x.shape)
+        r = nm(trial)
+        all_res.append(r)
+        fx = float(r.fun[0])
+        if fx < best_f:
+            best_x, best_f = r.x[0].cpu().numpy(), fx
+        if fx <= cur_f or rng.random() < np.exp(-(fx - cur_f) / temp):
+            cur_x, cur_f = r.x[0].cpu().numpy(), fx
+            naccept += 1
+    return record(best_x, best_f, all_res)
 
 
 def solve_batch(lik, x0_batch, tol: float = 1e-4) -> NMResult:

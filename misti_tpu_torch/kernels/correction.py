@@ -1,15 +1,20 @@
-"""Post-split single-population fit (reference ``FitSinglePop``) in torch.
+"""Post-split single-population fit (reference ``FitSinglePop``) and the
+forward coalescence rates (``CoalRates``) in torch.
 
-Only what the likelihood's ECT post-split sweep needs: the f32-stable
+The fit is what the likelihood's ECT post-split sweep needs: the f32-stable
 deviation form of the one-population expected coalescence time and the
-bracket-expansion + bisection root finder.  Both are elementwise over any
-batch shape.  The fit is the JAX package's arithmetic as it stands,
-including its raw-rate ``lam > 100`` guard.
+bracket-expansion + bisection root finder, elementwise over any batch shape.
+It is the JAX package's arithmetic as it stands, including its raw-rate
+``lam > 100`` guard.  `coal_rates` is the forward model's step (true EPS ->
+PSMC-style mixed rates), batch-first.
 """
 
 from __future__ import annotations
 
 import torch
+
+from ..model.statespace import correction_matrix
+from .expm import expm
 
 _BISECT_ITERS = 60
 _EXPAND_ITERS = 40
@@ -70,3 +75,19 @@ def fit_single_pop(lh: torch.Tensor, T: torch.Tensor, weights: torch.Tensor):
         lo = torch.where(up, mid, lo)
         hi = torch.where(up, hi, mid)
     return 0.5 * (lo + hi)
+
+
+def coal_rates(lc, mu, T, p0):
+    """CoalRates (CorrectLambda.py:112-122): true EPS -> PSMC-style mixed rates.
+
+    ``lc`` and ``mu`` (B, 2) rates, ``T`` (B,) interval lengths, ``p0``
+    (B, 2, 3) each genome's location distribution.  Returns (lh (B, 2),
+    p_out (B, 2, 3)).
+    """
+    m = correction_matrix(lc[..., 0], lc[..., 1], mu[..., 0], mu[..., 1])
+    T = torch.as_tensor(T, dtype=p0.dtype, device=p0.device)
+    e = expm(m * T[..., None, None], max_squarings=20)
+    p_out = p0 @ e.transpose(-1, -2)
+    nc = p_out.sum(-1) / p0.sum(-1)
+    lh = -torch.log(nc) / T[..., None]
+    return lh, p_out

@@ -73,7 +73,7 @@ def _ctx(n, seed):
 @pytest.mark.parametrize("res", [cf._res_cp, cf._res_ect, cf._res_nomig],
                          ids=["cpfit", "ect", "nomig"])
 def test_residual_tangents_match_jacfwd(res):
-    """The LM's 2x2 Jacobian (one stacked torch.func.jvp) against jacfwd.
+    """The LM's 2x2 Jacobian (one stacked forward-mode pass) against jacfwd.
     The rates straddle the series/direct switch points (0.5 and 1), and the
     larger ones need squarings."""
     n = 8

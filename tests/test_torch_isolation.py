@@ -1,6 +1,7 @@
 """The port stands alone: importing misti_tpu_torch and running a likelihood,
-a bootstrap sweep and the sweep CLI loads neither jax nor any module of misti_tpu, and its entry points default
-to the GPU (raising without one) instead of quietly picking the CPU.
+a bootstrap sweep, the sweep CLI, the single-fit CLI and testmodel loads
+neither jax nor any module of misti_tpu, and its entry points default to the
+GPU (raising without one) instead of quietly picking the CPU.
 
 The import check runs in a subprocess: this test process has jax loaded
 already (tests/conftest.py).
@@ -40,6 +41,16 @@ rc = cli.main([fix + "synth1.psmc", fix + "synth2.psmc", fix + "synth.jsfs", "--
                "7", "7", "-bs", "0", "-mi", "1", "2", "ST", "0.3", "1", "-uf", "--cpfit",
                "--funits", "/nonexistent", "--platform", "cpu", "--maxiter", "2"])
 assert rc == 0, rc
+
+from misti_tpu_torch.cli import misti, testmodel
+
+rc = misti.main([fix + "synth1.psmc", fix + "synth2.psmc", fix + "synth.jsfs", "8", "-uf",
+                 "-mi", "1", "2", "8", "0.3", "0", "-bs", "0", "--funits", "/nonexistent",
+                 "--platform", "cpu"])
+assert rc == 0, rc
+rc = testmodel.main(["-n 1 10 -n 2 4.5 -eN 0.025 0.2 -ej 0.045 2 1 -eN 0.175 3", "-uf",
+                     "--funits", "/nonexistent", "--platform", "cpu"])
+assert rc == 1, rc
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "misti_tpu"
              or m.startswith("misti_tpu."))
@@ -80,3 +91,14 @@ def test_default_device_is_the_gpu():
         build_likelihood(spec)
     lik = build_likelihood(spec, device="cpu")
     assert lik.dtype == torch.float64
+
+
+def test_single_fit_cli_defaults_to_the_gpu():
+    from misti_tpu_torch.cli import misti
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device resolves")
+    fix = os.path.join(REPO, "tests", "fixtures")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        misti.main([os.path.join(fix, f) for f in ("synth1.psmc", "synth2.psmc", "synth.jsfs")]
+                   + ["8", "-uf", "-mi", "1", "2", "8", "0.3", "1", "--funits", "/nonexistent"])
