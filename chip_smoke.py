@@ -31,7 +31,14 @@ Phases, each fatal on failure:
      cpfit with one optimised pulse) against the JAX package's CPU float64
      fits (tests/fixtures/torch_single_fit_ref.json) with per-fit timings,
      launches per objective call and the kernel at that instance, and the
-     testmodel README oracle.
+     testmodel README oracle;
+  8. the sharded sweep: phase 6's cpfit sweep through the sweep CLI as
+     SHARDED_RANKS ranks of ``python -m torch.distributed.run`` on the one
+     card, held to phase 6's gates against the same table and compared with
+     phase 6's one-process table (cells bitwise equal, max |dllh|, both
+     walls, each rank's objective calls and kernel launches) on the spectra
+     the ranks wrote, and the per-lane kernel at a rank's stage-1 width
+     (404 cells x 6 = 2424 lanes) against its plain version.
 Prints each phase's wall, a ``kernels`` JSON line, the card's name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``.  Exits nonzero
 without a card.
@@ -45,6 +52,7 @@ import json
 import math
 import os
 import re
+import signal
 import subprocess
 import sys
 import tempfile
@@ -68,6 +76,8 @@ SWEEP_SPLITS = [float(v) for v in range(20, 28)]
 SWEEP_MI = [["1", "4", "ST", "3", "1"]]
 SWEEP_REPLICATES = 100
 STAGED_MAXITER = 64  # the iteration cap of phase 6's staged-vs-uninterrupted check
+SHARDED_RANKS = 2  # phase 8: processes of the sharded sweep, all on the one card
+SHARDED_TIMEOUT_S = 420
 SWEEP_RUNS = (  # (mode, spec flags, --maxiter, the JAX package's table)
     ("cpfit", dict(cpfit=True), 256, "scripts/sweep1band_r05_cap256.npz"),
     ("ect", dict(cpfit=False), 1000, "scripts/sweep_ect_r05.npz"),
@@ -375,29 +385,30 @@ def phase_log(torch, dev):
     log(f"float32 torch.log on the card: max {ulp.max():.3f} ulp over {x.size} inputs")
 
 
-def _sweep_kernel_record(cf, torch, fs, points, st_idx, launches, mode):
-    """The per-lane kernel at the sweep's first-stage width: the input of the
-    first Nelder-Mead iteration's objective call (808 cells x 6 trial points
-    = 4848 lanes, s = 27), timed and held against its plain version."""
+def _sweep_kernel_record(cf, torch, fs, points, st_idx, launches, name):
+    """The per-lane kernel on the input of a first Nelder-Mead iteration's
+    objective call over the cells of ``points`` (W cells x 6 trial points;
+    phase 6: 808 cells = 4848 lanes, s = 27), timed and held against its
+    plain version.  Returns its record for the ``kernels`` line."""
     W, P, n = points.shape
     inp = fs.kernel_input(st_idx.repeat_interleave(P), points.reshape(W * P, n))
     opts = fs.kernel_opts
     s, B = inp.shape[1], inp.shape[2]
     got = cf.correction_sweep(inp, **opts)
     want = cf.correction_sweep_plain(inp, **opts)
-    err = check_close(f"sweep {mode} per-lane kernel", got, want, 1e-4, 1e-6)
+    err = check_close(name, got, want, 1e-4, 1e-6)
     k_ms = cuda_ms(lambda: cf.correction_sweep(inp, **opts), 10)
     p_ms = cuda_ms(lambda: cf.correction_sweep_plain(inp, **opts), 1)
     work = cf.sweep_work(inp, **opts)
     ops = cf.sweep_ops(work, s, B, **opts)
     nbytes = 15 * s * B * inp.element_size()
     t_ops, t_bytes = ops / PEAK_OPS["float32"], nbytes / HBM_BYTES_PER_S
-    rec = {"name": f"correction_sweep_{mode}_per_lane", "route": "cuda", "source": SOURCE,
+    rec = {"name": name, "route": "cuda", "source": SOURCE,
            "replaces": REPLACES, "launches": launches, "max_abs_err": err, "ms": k_ms,
            "plain_ms": p_ms, "bound_ms": max(t_ops, t_bytes) * 1e3,
            "bound_by": "operations" if t_ops >= t_bytes else "bytes", "library_ms": None}
     rec["share_of_bound"] = rec["bound_ms"] / k_ms
-    log(f"sweep {mode} per-lane kernel at s = {s}, B = {B}: {k_ms:.4f} ms, plain {p_ms:.1f} ms, "
+    log(f"{name} at s = {s}, B = {B}: {k_ms:.4f} ms, plain {p_ms:.1f} ms, "
         f"bound {rec['bound_ms']:.5f} ms ({rec['bound_by']}; {ops:.3e} ops, {nbytes} bytes), "
         f"{rec['share_of_bound']:.1%} of bound, lanes with lc off by > 1e-6 rel "
         f"{lanes_off(got, want)}/{B}, max|dlc| {err:.3e}, work {json.dumps(work)}")
@@ -435,6 +446,90 @@ def _ci_of(bootstrap, llh, splits, data, times, scale):
     return bootstrap.split_time_confidence_interval(res, times, scale)
 
 
+def _hold_to_table(torch, dev, bootstrap, inp, data, name, flags, maxiter, ref, llh, params,
+                   converged, cpu_check=False):
+    """The north-star sweep's gates against the JAX package's table ``ref``:
+    the same replicate spectra, all llh finite, the same argmax histogram,
+    the CI within 0.01 generations and, on cells converged in both runs, in
+    float64 on the card, no fit worse than the table's by more than 5e-2
+    nats (cpfit; ECT is only printed).  ``cpu_check`` also holds the card's
+    float64 llh at the table's parameters to the CPU's (limit 1e-6).
+    Returns them as one phrase for the caller's log line."""
+    from misti_tpu_torch.engine.sweep_fused import build_fused_sweep
+
+    require(np.array_equal(data, ref["data"]), f"{name}: replicate spectra differ from the table")
+    require(np.isfinite(llh).all(), f"{name}: non-finite llh")
+    splits = np.asarray(SWEEP_SPLITS)
+    hist = dict(zip(*np.unique(splits[llh.argmax(0)], return_counts=True)))
+    hist_ref = dict(zip(*np.unique(ref["split_times"][ref["llh"].argmax(0)],
+                                   return_counts=True)))
+    hist = {float(k): int(v) for k, v in hist.items()}
+    hist_ref = {float(k): int(v) for k, v in hist_ref.items()}
+    require(hist == hist_ref, f"{name}: argmax histogram {hist} != {hist_ref}")
+    ci = _ci_of(bootstrap, llh, splits, data, inp.times, inp.scale_time)
+    ci_ref = _ci_of(bootstrap, ref["llh"].astype(float), ref["split_times"], data,
+                    ref["times"], float(ref["scale_time"]))
+    d_ci = max(abs(ci["mean"] - ci_ref["mean"]),
+               *(abs(a - b) for a, b in zip(ci["ci"], ci_ref["ci"])))
+    require(d_ci <= 0.01, f"{name}: CI off by {d_ci} generations")
+    conv_ref = ref["nfev"] < 2 + 6 * maxiter  # one parameter: 2 + 6 per iteration
+    both = converged & conv_ref
+    require(both.any(), f"{name}: no cell converged in both runs")
+    dllh = np.abs(llh.astype(float) - ref["llh"].astype(float))[both]
+    # Both tables hold float32 llh values, and a float32 llh here is a
+    # difference of terms ~1e5-1e6: the table's own values sit up to ~1
+    # nat off the float64 likelihood at its own parameters.  So the two
+    # optima are compared in float64 on the card: the llh of this run's
+    # fit against that of the table's fit, on cells converged in both.
+    # The card's float64 path is tied to the JAX package through the
+    # port's CPU path (tests/test_torch_sweep.py): at the table's own
+    # parameters the two must agree.
+    sel = np.flatnonzero(both.ravel())
+    n_rows = data.shape[0]
+    st_all = np.repeat(np.arange(len(SWEEP_SPLITS)), n_rows)
+
+    def llh64(x, device):
+        fs64 = build_fused_sweep(inp.times, inp.lambdas, SWEEP_SPLITS, SWEEP_MI,
+                                 sample_date=inp.sample_date_discr, unfolded=True,
+                                 smooth=True, device=device, dtype=torch.float64, **flags)
+        x = np.asarray(x, float).reshape(-1, 1)[sel]
+        d64 = np.tile(data, (len(SWEEP_SPLITS), 1))[sel]
+        return fs64.llh(st_all[sel], x, d64).cpu().numpy()
+
+    ref64 = llh64(ref["params"], dev)
+    if cpu_check:
+        t_cpu = time.perf_counter()
+        ref64_cpu = llh64(ref["params"], "cpu")
+        t_cpu = time.perf_counter() - t_cpu
+        d_cpu = float(np.abs(ref64 - ref64_cpu).max())
+        log(f"{name}: float64 llh at the table's parameters on {sel.size} cells, card vs "
+            f"CPU: max |dllh| {d_cpu:.3e} (limit 1e-6; CPU {t_cpu:.1f} s)")
+        require(d_cpu <= 1e-6, f"{name}: card and CPU float64 llh differ by {d_cpu:.3e}")
+    gain64 = llh64(params, dev) - ref64  # > 0: this run's fit is better
+    worst = [dict(split=float(SWEEP_SPLITS[c // n_rows]), row=int(c % n_rows),
+                  params=float(params.ravel()[c]),
+                  table_params=float(ref["params"].ravel()[c]),
+                  llh=float(llh.ravel()[c]), table_llh=float(ref["llh"].ravel()[c]),
+                  gain64=float(g))
+             for c, g in sorted(zip(sel.tolist(), gain64), key=lambda t: t[1])[:5]]
+    log(f"{name}: the 5 cells where this fit is furthest below the table's "
+        f"(float64) {json.dumps(worst)}")
+    if flags.get("cpfit"):
+        # ECT is left out: its float32 surface is broken by the post-split
+        # fit's raw-rate guard (ROADMAP C1), float32 fits land off the optimum
+        require(gain64.min() >= -5e-2,
+                f"{name}: a fit is {-gain64.min():.3e} nats below the table's (float64)")
+    return (
+        f"argmax {hist} (table {hist_ref}), split mean {ci['mean']:.6f} gens CI "
+        f"[{ci['ci'][0]:.6f}, {ci['ci'][1]:.6f}] (table {ci_ref['mean']:.6f} "
+        f"[{ci_ref['ci'][0]:.6f}, {ci_ref['ci'][1]:.6f}]), unconverged "
+        f"{int((~converged).sum())} (table {int((~conv_ref).sum())}), |dllh| on "
+        f"{int(both.sum())} cells converged in both: median {np.median(dllh):.3e} max "
+        f"{dllh.max():.3e} (within 5e-2: {bool(dllh.max() <= 5e-2)}), float64 llh of this fit "
+        f"minus the table's: median {np.median(gain64):.3e} min {gain64.min():.3e} max "
+        f"{gain64.max():.3e}")
+
+
 def phase_sweep(cf, torch, dev):
     """The north-star bootstrap x split-time sweep on the card (float32),
     cpfit (--maxiter 256) and ECT, each against the JAX package's table of
@@ -457,10 +552,9 @@ def phase_sweep(cf, torch, dev):
     data_all = torch.as_tensor(np.tile(data, (len(SWEEP_SPLITS), 1)), dtype=torch.float32,
                                device=dev)
     records = []
+    cpfit_run = None
     for mode, flags, maxiter, table in SWEEP_RUNS:
         ref = np.load(os.path.join(HERE, table))
-        require(np.array_equal(data, ref["data"]),
-                f"sweep {mode}: replicate spectra differ from {table}")
         buf = io.StringIO()
         cf.correction_sweep.launches = 0
         t = time.perf_counter()
@@ -474,78 +568,15 @@ def phase_sweep(cf, torch, dev):
         for ln in stages:
             log(f"sweep {mode} {ln[2:]}")
         cells = res.llh.size
-        require(np.isfinite(res.llh).all(), f"sweep {mode}: non-finite llh")
         require(launches == res.calls,
                 f"sweep {mode}: {launches} kernel launches for {res.calls} objective calls")
-        splits = np.asarray(SWEEP_SPLITS)
-        hist = dict(zip(*np.unique(splits[res.llh.argmax(0)], return_counts=True)))
-        hist_ref = dict(zip(*np.unique(ref["split_times"][ref["llh"].argmax(0)],
-                                       return_counts=True)))
-        hist = {float(k): int(v) for k, v in hist.items()}
-        hist_ref = {float(k): int(v) for k, v in hist_ref.items()}
-        require(hist == hist_ref, f"sweep {mode}: argmax histogram {hist} != {hist_ref}")
-        ci = _ci_of(bootstrap, res.llh, splits, data, inp.times, inp.scale_time)
-        ci_ref = _ci_of(bootstrap, ref["llh"].astype(float), ref["split_times"], data,
-                        ref["times"], float(ref["scale_time"]))
-        d_ci = max(abs(ci["mean"] - ci_ref["mean"]),
-                   *(abs(a - b) for a, b in zip(ci["ci"], ci_ref["ci"])))
-        require(d_ci <= 0.01, f"sweep {mode}: CI off by {d_ci} generations")
-        conv_ref = ref["nfev"] < 2 + 6 * maxiter  # one parameter: 2 + 6 per iteration
-        both = res.converged & conv_ref
-        require(both.any(), f"sweep {mode}: no cell converged in both runs")
-        dllh = np.abs(res.llh.astype(float) - ref["llh"].astype(float))[both]
-        # Both tables hold float32 llh values, and a float32 llh here is a
-        # difference of terms ~1e5-1e6: the table's own values sit up to ~1
-        # nat off the float64 likelihood at its own parameters.  So the two
-        # optima are compared in float64 on the card: the llh of this run's
-        # fit against that of the table's fit, on cells converged in both.
-        # The card's float64 path is tied to the JAX package through the
-        # port's CPU path (tests/test_torch_sweep.py): at the table's own
-        # parameters the two must agree.
-        sel = np.flatnonzero(both.ravel())
-
-        def llh64(x, device):
-            fs64 = build_fused_sweep(inp.times, inp.lambdas, SWEEP_SPLITS, SWEEP_MI,
-                                     sample_date=inp.sample_date_discr, unfolded=True,
-                                     smooth=True, device=device, dtype=torch.float64, **flags)
-            x = np.asarray(x, float).reshape(-1, 1)[sel]
-            d64 = np.tile(data, (len(SWEEP_SPLITS), 1))[sel]
-            return fs64.llh(st_all.cpu().numpy()[sel], x, d64).cpu().numpy()
-
-        ref64 = llh64(ref["params"], dev)
-        t_cpu = time.perf_counter()
-        ref64_cpu = llh64(ref["params"], "cpu")
-        t_cpu = time.perf_counter() - t_cpu
-        d_cpu = float(np.abs(ref64 - ref64_cpu).max())
-        log(f"sweep {mode}: float64 llh at the table's parameters on {sel.size} cells, card vs "
-            f"CPU: max |dllh| {d_cpu:.3e} (limit 1e-6; CPU {t_cpu:.1f} s)")
-        require(d_cpu <= 1e-6, f"sweep {mode}: card and CPU float64 llh differ by {d_cpu:.3e}")
-        gain64 = llh64(res.params, dev) - ref64  # > 0: this run's fit is better
-        worst = [dict(split=float(SWEEP_SPLITS[c // n_rows]), row=int(c % n_rows),
-                      params=float(res.params.ravel()[c]),
-                      table_params=float(ref["params"].ravel()[c]),
-                      llh=float(res.llh.ravel()[c]), table_llh=float(ref["llh"].ravel()[c]),
-                      gain64=float(g))
-                 for c, g in sorted(zip(sel.tolist(), gain64), key=lambda t: t[1])[:5]]
-        log(f"sweep {mode}: the 5 cells where this fit is furthest below the table's "
-            f"(float64) {json.dumps(worst)}")
+        g = _hold_to_table(torch, dev, bootstrap, inp, data, f"sweep {mode}", flags, maxiter, ref,
+                           res.llh, res.params, res.converged, cpu_check=True)
         evals = int(res.nfev.sum())
         log(f"sweep {mode}: {cells} cells, {evals} llh evals (table: {int(ref['nfev'].sum())}), "
             f"{wall:.2f} s wall, {evals / wall:.1f} evals/s, {res.calls} objective calls = "
-            f"{launches} kernel launches, argmax {hist} (table {hist_ref}), split mean "
-            f"{ci['mean']:.6f} gens CI [{ci['ci'][0]:.6f}, {ci['ci'][1]:.6f}] (table "
-            f"{ci_ref['mean']:.6f} [{ci_ref['ci'][0]:.6f}, {ci_ref['ci'][1]:.6f}]), "
-            f"unconverged {int((~res.converged).sum())} (table {int((~conv_ref).sum())}), "
-            f"|dllh| on {int(both.sum())} cells converged in both: median "
-            f"{np.median(dllh):.3e} max {dllh.max():.3e} (within 5e-2: "
-            f"{bool(dllh.max() <= 5e-2)}), float64 llh of this fit minus the table's: "
-            f"median {np.median(gain64):.3e} min {gain64.min():.3e} max {gain64.max():.3e}, "
-            f"cells with different nfev {int((res.nfev != ref['nfev']).sum())}")
-        if mode == "cpfit":
-            # ECT is left out: its float32 surface is broken by the post-split
-            # fit's raw-rate guard (ROADMAP C1), float32 fits land off the optimum
-            require(gain64.min() >= -5e-2,
-                    f"sweep {mode}: a fit is {-gain64.min():.3e} nats below the table's (float64)")
+            f"{launches} kernel launches, {g}, cells with different nfev "
+            f"{int((res.nfev != ref['nfev']).sum())}")
 
         # one Nelder-Mead iteration at the first stage's width and at the
         # narrowest stage width of this run; the per-lane kernel at the first
@@ -562,7 +593,10 @@ def phase_sweep(cf, torch, dev):
                                         data_all, st_all, x0_all)
         log(f"sweep {mode}: one Nelder-Mead iteration {ms_wide:.1f} ms at {cells} cells "
             f"({cells * 6} lanes), {ms_narrow:.1f} ms at {narrow} cells ({narrow * 6} lanes)")
-        records.append(_sweep_kernel_record(cf, torch, fs, points, st_all, launches, mode))
+        records.append(_sweep_kernel_record(cf, torch, fs, points, st_all, launches,
+                                            f"correction_sweep_{mode}_per_lane"))
+        if mode == "cpfit":
+            cpfit_run = dict(res=res, wall=wall, fs=fs, points=points, st_all=st_all)
 
     # staged against uninterrupted, on the card: splits 24-25 x 8 rows, ECT,
     # both capped at STAGED_MAXITER iterations (~0.5 s each at this width: a
@@ -585,7 +619,7 @@ def phase_sweep(cf, torch, dev):
         f"rows, float32: bitwise {bitwise}, max |dllh| {d:.3e}, cells with different nfev "
         f"{int((r1.nfev != r2.nfev).sum())}, unconverged {int((~r1.converged).sum())}, "
         f"max nfev {int(r1.nfev.max())}")
-    return records
+    return records, cpfit_run
 
 
 def _run_cli(main, argv):
@@ -784,6 +818,100 @@ def phase_single_fit(cf, torch, dev):
     return records
 
 
+def _run_ranks(cmd, timeout):
+    """Run a ``torch.distributed.run`` command in a session of its own:
+    (rc, stdout, stderr, wall s).  On a timeout every process of the session
+    (torchrun and its ranks) is killed and the phase fails."""
+    t = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, start_new_session=True,
+                            env=dict(os.environ, PYTHONPATH=HERE))
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise RuntimeError(f"{' '.join(cmd[:6])} ...: no end within {timeout} s")
+    finally:
+        with contextlib.suppress(ProcessLookupError):
+            os.killpg(proc.pid, signal.SIGKILL)  # a rank left behind
+    return proc.returncode, out, err, time.perf_counter() - t
+
+
+def phase_sharded_sweep(cf, torch, dev, cpfit_run):
+    """Phase 6's north-star cpfit sweep (--maxiter 256, float32, bootstrap
+    seed 0) through ``misti_tpu_torch.cli.sweep`` as SHARDED_RANKS ranks of
+    ``torch.distributed.run`` on the one card, held to phase 6's gates
+    against the same JAX table on the spectra the ranks fitted, and compared
+    with phase 6's one-process table; then the per-lane kernel at the width
+    a rank launches it in stage 1 (808 / SHARDED_RANKS cells x 6 trial
+    points), held against its plain version on every rank's block.  Returns
+    that instance's record, with the ranks' launches."""
+    from misti_tpu_torch.engine import bootstrap
+    from misti_tpu_torch.io import jsfs as io_jsfs
+    from misti_tpu_torch.io import psmc as io_psmc
+
+    fix = os.path.join(HERE, "tests", "fixtures")
+    inp = io_psmc.read_psmc(os.path.join(fix, "sweep1.psmc"), os.path.join(fix, "sweep2.psmc"),
+                            0, -1)
+    data = bootstrap.make_bootstrap_data(io_jsfs.read_jafs(os.path.join(fix, "sweep.jsfs")),
+                                         SWEEP_REPLICATES, seed=0)
+    mode, flags, maxiter, table = SWEEP_RUNS[0]
+    ref = np.load(os.path.join(HERE, table))
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "sweep.npz")
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc-per-node", str(SHARDED_RANKS), "-m", "misti_tpu_torch.cli.sweep",
+               *(os.path.join(fix, f) for f in ("sweep1.psmc", "sweep2.psmc", "sweep.jsfs")),
+               "--splits", "20", "27", "-bs", str(SWEEP_REPLICATES), "-mi", *SWEEP_MI[0], "-uf",
+               "--cpfit", "--maxiter", str(maxiter), "--seed", "0", "--funits", "/nonexistent",
+               "-o", out]
+        rc, stdout, stderr, wall = _run_ranks(cmd, SHARDED_TIMEOUT_S)
+        for ln in stderr.splitlines():
+            if ln.startswith("# sweep stage"):
+                log(f"sharded sweep {ln[2:]}")
+        require(rc == 0, f"sharded sweep: rc {rc}\n{stdout[-4000:]}\n{stderr[-4000:]}")
+        summary = json.loads([ln for ln in stdout.splitlines() if ln.startswith("{")][-1])
+        z = {k: v for k, v in np.load(out).items()}
+    require(summary["processes"] == SHARDED_RANKS, f"sharded sweep: {summary['processes']} ranks")
+    cells = sum(ln.startswith("bs_id = ") for ln in stdout.splitlines())
+    require(cells == len(SWEEP_SPLITS) * data.shape[0], f"sharded sweep: {cells} cell lines")
+    launches, calls = summary["kernel_launches"], summary["objective_calls"]
+    require(min(launches) > 0 and sum(launches) == calls["sum"],
+            f"sharded sweep: kernel launches {launches} for objective calls {calls}")
+    require(np.array_equal(z["data"], data),
+            "sharded sweep: the ranks' spectra differ from make_bootstrap_data(seed=0)")
+    conv = z["nfev"] < 2 + 6 * maxiter  # one parameter: 2 + 6 per iteration
+    g = _hold_to_table(torch, dev, bootstrap, inp, z["data"], "sharded sweep", flags, maxiter,
+                       ref, z["llh"], z["params"], conv)
+    one = cpfit_run["res"]
+    same = (z["llh"] == one.llh) & (z["params"][..., 0] == one.params[..., 0])
+    d_one = float(np.abs(z["llh"].astype(float) - one.llh.astype(float)).max())
+    log(f"sharded sweep ({SHARDED_RANKS} ranks on one card, cpfit, --maxiter {maxiter}): "
+        f"{z['llh'].size} cells, {int(z['nfev'].sum())} llh evals, wall {wall:.2f} s with "
+        f"start-up (the CLI's sweep wall {summary['wallclock_s']} s; one process, phase 6: "
+        f"{cpfit_run['wall']:.2f} s), objective calls busiest rank {calls['max']} / all ranks "
+        f"{calls['sum']} (one process {one.calls}), kernel launches per rank {launches}; "
+        f"against phase 6's table: {int(same.sum())}/{same.size} cells bitwise equal, max "
+        f"|dllh| {d_one:.3e}, cells with different nfev {int((z['nfev'] != one.nfev).sum())}; "
+        f"{g}; the CLI's summary {json.dumps(summary)}")
+
+    # the kernel at a rank's stage-1 width: each rank's contiguous block of
+    # the first iteration's trial points (phase 6's, cells in the CLI's
+    # split-major order), rank 0's block timed
+    fs, points, st_all = cpfit_run["fs"], cpfit_run["points"], cpfit_run["st_all"]
+    per = points.shape[0] // SHARDED_RANKS
+    rec = None
+    for r in range(SHARDED_RANKS):
+        blk = slice(r * per, (r + 1) * per)
+        r_rec = _sweep_kernel_record(cf, torch, fs, points[blk], st_all[blk], sum(launches),
+                                     f"correction_sweep_{mode}_per_lane_rank_block")
+        rec = rec or r_rec
+        rec["max_abs_err"] = max(rec["max_abs_err"], r_rec["max_abs_err"])
+    rec["launches_sharded"] = launches  # per rank; "launches" is their sum
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -819,8 +947,10 @@ def main() -> int:
     kernels = phase("3 main path", phase_main_path, cf, torch, dev, bench)
     phase("4 real inputs", phase_real_inputs, torch, dev)
     phase("5 log", phase_log, torch, dev)
-    kernels += phase("6 sweep path", phase_sweep, cf, torch, dev)
+    sweep_records, cpfit_run = phase("6 sweep path", phase_sweep, cf, torch, dev)
+    kernels += sweep_records
     kernels += phase("7 single fit", phase_single_fit, cf, torch, dev)
+    kernels.append(phase("8 sharded sweep", phase_sharded_sweep, cf, torch, dev, cpfit_run))
     log(f"chip_smoke: {time.perf_counter() - t0:.1f} s wall in all")
 
     log("kernels " + json.dumps({"kernels": kernels}))

@@ -1,4 +1,4 @@
-"""Bootstrap x split-time sweep CLI: upstream's test.bs workflow on one GPU.
+"""Bootstrap x split-time sweep CLI: upstream's test.bs workflow on the GPU.
 
 One invocation replaces the reference's nested bash loops
 (test.bs/han_fre.bs.sh:29-37: `for bs in {0..100}; for st in {10..17}:
@@ -11,6 +11,13 @@ Usage:
         --splits 10 17 -bs 100 -mi 1 4 ST 3 1 -uf [--cpfit] -o out.npz \
         [--platform cuda|cpu]
 
+Under ``python -m torch.distributed.run --standalone --nproc-per-node N -m
+misti_tpu_torch.cli.sweep ...`` the cells are split over N processes (one
+device each, ``cuda:(LOCAL_RANK % device count)``; all share the card of a
+one-card machine), and rank 0 prints the cell lines and the summary and
+writes ``-o``.  The summary then also gives ``processes``, the objective
+calls of the busiest rank and of all ranks, and each rank's kernel launches.
+
 Migration/pulse templates accept the literal ``ST`` for the split index,
 like the shell variable in the reference scripts.  Output: greppable
 per-cell lines (`bs_id = ... splitT = ... llh = ...`), an .npz results
@@ -21,6 +28,8 @@ and raises without a card; ``cpu`` runs in float64.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
 import os
 import sys
@@ -29,7 +38,7 @@ import time
 
 def make_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
-        description="Bootstrap x split-time sweep (test.bs workflow on one GPU)."
+        description="Bootstrap x split-time sweep (test.bs workflow on the GPU)."
     )
     p.add_argument("fpsmc1", nargs="?", default=None)
     p.add_argument("fpsmc2", nargs="?", default=None)
@@ -117,8 +126,9 @@ def main(argv=None) -> int:
     clargs = make_parser().parse_args(argv)
 
     import numpy as np
+    import torch
 
-    from ..config import resolve_device
+    from ..dist.mesh import all_gather_rows, init_distributed, rank, rank_device, world_size
     from ..engine.bootstrap import (
         make_bootstrap_data,
         split_time_confidence_interval,
@@ -127,11 +137,18 @@ def main(argv=None) -> int:
     from ..io import jsfs as io_jsfs
     from ..io import psmc as io_psmc
     from ..io.units import Units
+    from ..kernels.correction_fused import correction_sweep
 
-    device = resolve_device(clargs.platform)  # raises for cuda without a card
+    group = init_distributed()  # None unless started by torchrun with WORLD_SIZE > 1
+    world, lead = world_size(group), rank(group) == 0
+    device = rank_device(clargs.platform)  # raises for cuda without a card
 
-    Units.set_units_from_file(clargs.funits)
-    Units.print_units()
+    if lead:
+        Units.set_units_from_file(clargs.funits)
+        Units.print_units()
+    else:
+        with contextlib.redirect_stdout(io.StringIO()):
+            Units.set_units_from_file(clargs.funits)
 
     # scenario descriptors: one (single-scenario mode) or a manifest matrix
     if clargs.scenarios:
@@ -140,8 +157,9 @@ def main(argv=None) -> int:
         names = [ent["name"] for ent in manifest]
         if len(set(names)) != len(names):
             dupes = sorted({n for n in names if names.count(n) > 1})
-            print(f"error: duplicate scenario names in manifest: {dupes} "
-                  "(results are keyed by name)", file=sys.stderr)
+            if lead:
+                print(f"error: duplicate scenario names in manifest: {dupes} "
+                      "(results are keyed by name)", file=sys.stderr)
             return 2
         mdir = os.path.dirname(os.path.abspath(clargs.scenarios))
 
@@ -163,8 +181,9 @@ def main(argv=None) -> int:
     else:
         if not (clargs.fpsmc1 and clargs.fpsmc2 and clargs.fjafs
                 and clargs.splits):
-            print("error: either --scenarios MANIFEST or fpsmc1 fpsmc2 "
-                  "fjafs --splits are required", file=sys.stderr)
+            if lead:
+                print("error: either --scenarios MANIFEST or fpsmc1 fpsmc2 "
+                      "fjafs --splits are required", file=sys.stderr)
             return 2
         descs = [dict(name="", fpsmc1=clargs.fpsmc1, fpsmc2=clargs.fpsmc2,
                       fjafs=clargs.fjafs, splits=clargs.splits,
@@ -191,7 +210,8 @@ def main(argv=None) -> int:
         ))
         meta.append(input_data)
 
-    prof = _Profile(clargs.profile) if clargs.profile else None
+    # rank 0 profiles its own process
+    prof = _Profile(clargs.profile) if clargs.profile and lead else None
     if prof is not None:
         prof.__enter__()
     t0 = time.time()
@@ -199,20 +219,26 @@ def main(argv=None) -> int:
         "stage_caps": tuple(clargs.stages)
     }
     per_scn_dt = []
+    launches = []
     results = {}
     # one-scenario sweep_many calls rather than one batch call, to time each
     # scenario for the summary
     for sc in scenarios:
         t_sc = time.time()
+        n0 = correction_sweep.launches
         results.update(sweep_many([sc], tol=clargs.tol, maxiter=clargs.maxiter,
-                                  device=device, **stage_kw))
+                                  device=device, group=group, **stage_kw))
         per_scn_dt.append(time.time() - t_sc)
+        n = torch.tensor([correction_sweep.launches - n0])
+        launches.append(all_gather_rows(n, group, world).tolist())
     if prof is not None:
         prof.__exit__(None, None, None)
     dt = time.time() - t0
+    if not lead:
+        return 0
 
     matrix = []
-    for sc, input_data, dt_sc in zip(scenarios, meta, per_scn_dt):
+    for sc, input_data, dt_sc, launched in zip(scenarios, meta, per_scn_dt, launches):
         res = results[sc["name"]]
         splits = sc["splits"]
         data = sc["data"]
@@ -258,6 +284,10 @@ def main(argv=None) -> int:
             summary["llh_evals"] = evals
             summary["evals_per_s"] = round(evals / dt_sc, 1)
             summary["vs_baseline_1core"] = round(evals / dt_sc / 5.7, 1)
+        if group is not None:
+            summary["processes"] = world
+            summary["objective_calls"] = {"max": res.calls, "sum": res.calls_sum}
+            summary["kernel_launches"] = launched
         print(json.dumps(summary))
         matrix.append(summary)
         if clargs.fout:
@@ -288,4 +318,9 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    rc = main()
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    sys.exit(rc)

@@ -8,8 +8,11 @@ batched likelihood (engine/sweep_fused.py), whose pre-split correction is the
 hand-written CUDA kernel on the card.  The confidence interval
 (bs_conf_int.ipynb cells 2-3) is a few lines of numpy.
 
-The sweep runs on one device (``device``/``dtype``; default CUDA, raising
-without a card).  Sharding replicates over several cards is not ported yet.
+The sweep runs on one device per process (``device``/``dtype``; default
+CUDA, raising without a card).  Given a ``torch.distributed`` group, each
+stage's cells are split by rows over its ranks and the result tables are
+all-gathered (dist/mesh.py), so every rank holds the whole table and takes
+the same compaction decisions.
 """
 
 from __future__ import annotations
@@ -18,12 +21,14 @@ import dataclasses
 import random
 import sys
 import time
+import zlib
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
 from ..config import resolve_device, resolve_dtype
+from ..dist.mesh import all_gather_rows, pad_to_multiple, rank, row_block, world_size
 from ..io.data import Jafs
 from ..io.jsfs import bootstrap_jafs
 from .likelihood import build_likelihood
@@ -40,7 +45,8 @@ class SweepResult:
     data: np.ndarray  # (B, 7) per-replicate spectra (row 0 = full data)
     nfev: np.ndarray = None  # (S, B) likelihood evaluations per cell
     converged: np.ndarray = None  # (S, B) Nelder-Mead convergence flags
-    calls: int = 0  # batched objective calls made (one per Nelder-Mead step)
+    calls: int = 0  # batched objective calls (one per Nelder-Mead step) of the busiest rank
+    calls_sum: int = 0  # batched objective calls of all ranks together
     shape_key: str = ""  # the fused sweep's `FusedSweep.shape_key` ("" per split)
 
 
@@ -69,6 +75,21 @@ def _lane_objective(llh, st_idx, data, calls):
     return f
 
 
+def _rank_calls(calls: int, group) -> tuple:
+    """(max, sum) over the ranks of each rank's objective calls."""
+    per = all_gather_rows(torch.tensor([calls]), group, world_size(group))
+    return int(per.max()), int(per.sum())
+
+
+def _check_same_data(data: np.ndarray, group) -> None:
+    """Every rank must fit the same replicate spectra (each draws them from
+    the same seed): raise on every rank if a checksum differs."""
+    crc = zlib.crc32(np.ascontiguousarray(data, dtype=np.float64).tobytes())
+    got = all_gather_rows(torch.tensor([crc], dtype=torch.int64), group, world_size(group))
+    if (got != got[0]).any():
+        raise RuntimeError(f"ranks hold different replicate spectra (crc32 {got.tolist()})")
+
+
 def sweep(
     times: Sequence[float],
     lambdas,
@@ -85,6 +106,7 @@ def sweep(
     stage_caps: Sequence[int] = (16, 32, 64, 128, 256),
     maxiter: int = 1000,
     phase1_maxiter: Optional[int] = None,
+    group=None,
     **spec_flags,
 ) -> SweepResult:
     """Fit every (replicate, split time) cell.
@@ -101,19 +123,26 @@ def sweep(
     compaction (see `_sweep_fused`); ``phase1_maxiter`` is the single-stage
     schedule ``(phase1_maxiter,)``.  ``device`` defaults to CUDA and raises
     without a card; ``dtype`` to float32 on CUDA, float64 on the CPU.
+
+    ``group`` (a ``torch.distributed`` process group, dist/mesh.py) splits the
+    cells over its ranks; every rank must call with the same arguments and
+    gets the same result.  None fits every cell in this process.
     """
     dev = resolve_device(device)
     dt = resolve_dtype(dev, dtype)
     data = np.asarray(data, float)
     b = data.shape[0]
+    if group is not None:
+        _check_same_data(data, group)
 
     if fused:
         return _sweep_fused(times, lambdas, data, [float(v) for v in split_times],
                             mi_template, pu_template, tol=tol, device=dev, dtype=dt,
                             sample_date=sample_date, stage_caps=stage_caps,
                             maxiter=maxiter, phase1_maxiter=phase1_maxiter,
-                            **spec_flags)
+                            group=group, **spec_flags)
 
+    world, me = world_size(group), rank(group)
     all_params, all_llh, all_nfev, all_conv = [], [], [], []
     calls = [0]
     for st in split_times:
@@ -125,26 +154,31 @@ def sweep(
             sample_date=sample_date, **spec_flags,
         )
         lik = build_likelihood(spec, device=dev, dtype=dt)
-        d = torch.as_tensor(data, dtype=dt, device=dev)
-        x0 = torch.as_tensor(np.tile(spec.init_params, (b, 1)), dtype=dt, device=dev)
-        st_idx = torch.zeros(b, dtype=torch.int64, device=dev)
-        obj = _lane_objective(lambda _, p, dd: lik.llh_data(p, dd), st_idx, d, calls)
-        res = nelder_mead(obj, x0, xatol=tol, fatol=tol, maxiter=maxiter)
-        all_params.append(res.x.cpu().numpy())
-        all_llh.append(-res.fun.cpu().numpy())
-        all_nfev.append(res.nfev.cpu().numpy())
-        all_conv.append(res.converged.cpu().numpy())
+        d, _ = pad_to_multiple(torch.as_tensor(data, dtype=dt, device=dev), world, fill=1.0)
+        x0, _ = pad_to_multiple(
+            torch.as_tensor(np.tile(spec.init_params, (b, 1)), dtype=dt, device=dev), world)
+        mine = row_block(d.shape[0], world, me)
+        st_idx = torch.zeros(d[mine].shape[0], dtype=torch.int64, device=dev)
+        obj = _lane_objective(lambda _, p, dd: lik.llh_data(p, dd), st_idx, d[mine], calls)
+        res = nelder_mead(obj, x0[mine], xatol=tol, fatol=tol, maxiter=maxiter)
+        gather = lambda t: all_gather_rows(t, group, b).cpu().numpy()
+        all_params.append(gather(res.x))
+        all_llh.append(-gather(res.fun))
+        all_nfev.append(gather(res.nfev))
+        all_conv.append(gather(res.converged))
 
+    calls_max, calls_sum = _rank_calls(calls[0], group)
     return SweepResult(
         split_times=np.asarray(list(split_times), float),
         params=np.stack(all_params), llh=np.stack(all_llh), data=data,
-        nfev=np.stack(all_nfev), converged=np.stack(all_conv), calls=calls[0],
+        nfev=np.stack(all_nfev), converged=np.stack(all_conv), calls=calls_max,
+        calls_sum=calls_sum,
     )
 
 
 def _sweep_fused(times, lambdas, data, splits, mi_template, pu_template, *,
                  tol, device, dtype, sample_date, stage_caps=(16, 32, 64, 128, 256),
-                 maxiter=1000, phase1_maxiter=None, **spec_flags):
+                 maxiter=1000, phase1_maxiter=None, group=None, **spec_flags):
     """The fused grid sweep with multi-stage straggler compaction.
 
     Lockstep fits pay for the slowest lane every iteration: a few
@@ -157,6 +191,13 @@ def _sweep_fused(times, lambdas, data, splits, mi_template, pu_template, *,
     is Markov in (simplex, fsim, it), so the staged trajectory is the
     uninterrupted run's, as long as a lane's objective value does not depend
     on the batch it is evaluated in.
+
+    With a ``group``, each stage's cells are padded to a multiple of the
+    world size (the first stage as the JAX package pads: data rows of 1.0,
+    zero starts and split index 0; later stages with copies of their first
+    cell), every rank fits its row block, and the results and NMState are
+    all-gathered in the run's dtype, so every rank computes the same next
+    stage.  Stage lines go to stderr from rank 0 only.
     """
     fs = build_fused_sweep(times, lambdas, splits, mi_template, pu_template,
                            sample_date=sample_date, device=device, dtype=dtype,
@@ -164,6 +205,7 @@ def _sweep_fused(times, lambdas, data, splits, mi_template, pu_template, *,
     dev, dt = fs.device, fs.dtype
     b = data.shape[0]
     n_cells = len(splits) * b
+    world, me = world_size(group), rank(group)
 
     if phase1_maxiter is not None:
         stage_caps = (int(phase1_maxiter),)
@@ -176,14 +218,21 @@ def _sweep_fused(times, lambdas, data, splits, mi_template, pu_template, *,
     calls = [0]
 
     t0 = time.perf_counter()
-    res, state = nelder_mead(_lane_objective(fs.llh, st_idx, cell_data, calls), x0,
+    sp, _ = pad_to_multiple(st_idx, world)
+    dp, _ = pad_to_multiple(cell_data, world, fill=1.0)
+    xp, _ = pad_to_multiple(x0, world)
+    mine = row_block(sp.shape[0], world, me)
+    res, state = nelder_mead(_lane_objective(fs.llh, sp[mine], dp[mine], calls), xp[mine],
                              xatol=tol, fatol=tol, maxiter=caps[0], with_state=True)
-    x, fun, nfev, conv = res.x.clone(), res.fun.clone(), res.nfev.clone(), res.converged
+    gather = lambda t: all_gather_rows(t, group, n_cells).clone()
+    x, fun, nfev, conv = (gather(t) for t in (res.x, res.fun, res.nfev, res.converged))
+    sim, fsim, it, nfev_s = (gather(t) for t in state[:4])
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
-    print(f"# sweep stage 1/{len(caps)}: {n_cells} cells to cap {caps[0]}, "
-          f"{time.perf_counter() - t0:.1f} s, unconverged {int((~conv).sum())}",
-          file=sys.stderr)
+    if me == 0:
+        print(f"# sweep stage 1/{len(caps)}: {n_cells} cells to cap {caps[0]}, "
+              f"{time.perf_counter() - t0:.1f} s, unconverged {int((~conv).sum())}",
+              file=sys.stderr)
 
     if fs.n_params and len(caps) > 1:
         for si, cap in enumerate(caps[1:], start=2):
@@ -191,22 +240,27 @@ def _sweep_fused(times, lambdas, data, splits, mi_template, pu_template, *,
             if todo.numel() == 0:
                 break
             t0 = time.perf_counter()
-            st0 = NMState(sim=state.sim[todo], fsim=state.fsim[todo], it=state.it[todo],
-                          nfev=state.nfev[todo],
-                          aux_sum=torch.zeros((todo.numel(), 0), dtype=dt, device=dev))
+            idx, m = pad_to_multiple(todo, world, fill=int(todo[0]))
+            sel = idx[row_block(idx.numel(), world, me)]
+            st0 = NMState(sim=sim[sel], fsim=fsim[sel], it=it[sel], nfev=nfev_s[sel],
+                          aux_sum=torch.zeros((sel.numel(), 0), dtype=dt, device=dev))
             r2, s2 = nelder_mead(
-                _lane_objective(fs.llh, st_idx[todo], cell_data[todo], calls), x0[todo],
+                _lane_objective(fs.llh, st_idx[sel], cell_data[sel], calls), x0[sel],
                 xatol=tol, fatol=tol, maxiter=cap, state0=st0, with_state=True)
-            x[todo], fun[todo], nfev[todo], conv[todo] = r2.x, r2.fun, r2.nfev, r2.converged
-            state.sim[todo], state.fsim[todo] = s2.sim, s2.fsim
-            state.it[todo], state.nfev[todo] = s2.it, s2.nfev
+            gather = lambda t: all_gather_rows(t, group, m)
+            x[todo], fun[todo], nfev[todo] = gather(r2.x), gather(r2.fun), gather(r2.nfev)
+            conv[todo] = gather(r2.converged)
+            sim[todo], fsim[todo] = gather(s2.sim), gather(s2.fsim)
+            it[todo], nfev_s[todo] = gather(s2.it), gather(s2.nfev)
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
-            print(f"# sweep stage {si}/{len(caps)}: {todo.numel()} cells "
-                  f"resumed to cap {cap}, "
-                  f"{time.perf_counter() - t0:.1f} s, "
-                  f"unconverged {int((~conv).sum())}", file=sys.stderr)
+            if me == 0:
+                print(f"# sweep stage {si}/{len(caps)}: {todo.numel()} cells "
+                      f"resumed to cap {cap}, "
+                      f"{time.perf_counter() - t0:.1f} s, "
+                      f"unconverged {int((~conv).sum())}", file=sys.stderr)
 
+    calls_max, calls_sum = _rank_calls(calls[0], group)
     S = len(splits)
     return SweepResult(
         split_times=np.asarray(splits, float),
@@ -215,7 +269,8 @@ def _sweep_fused(times, lambdas, data, splits, mi_template, pu_template, *,
         data=data,
         nfev=nfev.cpu().numpy().reshape(S, b),
         converged=conv.cpu().numpy().reshape(S, b),
-        calls=calls[0],
+        calls=calls_max,
+        calls_sum=calls_sum,
         shape_key=fs.shape_key,
     )
 
@@ -228,8 +283,9 @@ def sweep_many(
     dtype=None,
     stage_caps: Sequence[int] = (16, 32, 64, 128, 256),
     maxiter: int = 1000,
+    group=None,
 ) -> dict:
-    """Run a matrix of sweep scenarios in one process.
+    """Run a matrix of sweep scenarios in one process (or one process group).
 
     The reference's benchmark suite is 16 shell scripts (4 genome pairs x 4
     migration scenarios, test.bs/), each paying its own process start.  Here
@@ -246,6 +302,7 @@ def sweep_many(
       sample_date: int (default 0)
       any further keys are spec flags (cpfit, smooth, unfolded, correct...)
 
+    ``group`` shards each scenario's cells over its ranks, as in `sweep`.
     Returns {name: SweepResult}.
     """
     results = {}
@@ -256,7 +313,7 @@ def sweep_many(
             sc.pop("times"), sc.pop("lambdas"), np.asarray(sc.pop("data"), float),
             sc.pop("splits"), sc.pop("mi_template", ()), sc.pop("pu_template", ()),
             tol=tol, device=device, dtype=dtype, sample_date=int(sc.pop("sample_date", 0)),
-            stage_caps=stage_caps, maxiter=maxiter, **sc,
+            stage_caps=stage_caps, maxiter=maxiter, group=group, **sc,
         )
     return results
 

@@ -670,6 +670,13 @@ def _lib_path(dtype: torch.dtype, cpfit: bool) -> Path:
     return BUILD_DIR / f"correction_sweep_{_DTYPES[dtype][1]}_{'cpfit' if cpfit else 'ect'}.so"
 
 
+def _tmp_path(out: Path) -> Path:
+    """Where nvcc writes ``out`` before it is moved into place: a name of this
+    process's own, so processes building one library at once (the ranks of a
+    sharded sweep) never load one another's half-written file."""
+    return out.with_name(f"{out.name}.{os.getpid()}.tmp")
+
+
 def compile_libs(jobs, check: bool = True) -> dict:
     """Run one nvcc per job (out path, source, dtype, cpfit, extra flags), all
     started together.  Returns {library name: (seconds, nvcc/ptxas log, ok)};
@@ -679,7 +686,7 @@ def compile_libs(jobs, check: bool = True) -> dict:
         out = Path(out)
         out.parent.mkdir(parents=True, exist_ok=True)
         cmd = [_nvcc(), *NVCC_FLAGS, *flags, f"-DMISTI_T={_DTYPES[dtype][0]}",
-               f"-DMISTI_CPFIT={int(cpfit)}", "-o", str(out) + ".tmp", str(src)]
+               f"-DMISTI_CPFIT={int(cpfit)}", "-o", str(_tmp_path(out)), str(src)]
         procs.append((out, time.perf_counter(), subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     report = {}
@@ -687,7 +694,7 @@ def compile_libs(jobs, check: bool = True) -> dict:
         log, _ = proc.communicate()
         ok = proc.returncode == 0
         if ok:
-            os.replace(str(out) + ".tmp", out)
+            os.replace(_tmp_path(out), out)  # atomic: a loader sees the old file or the new
         elif check:
             raise RuntimeError(f"nvcc failed for {out.name}:\n{log}")
         report[out.name] = (time.perf_counter() - t0, log, ok)

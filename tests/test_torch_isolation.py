@@ -1,7 +1,8 @@
 """The port stands alone: importing misti_tpu_torch and running a likelihood,
-a bootstrap sweep, the sweep CLI, the single-fit CLI and testmodel loads
-neither jax nor any module of misti_tpu, and its entry points default to the
-GPU (raising without one) instead of quietly picking the CPU.
+a bootstrap sweep, the sweep CLI, the single-fit CLI, testmodel, the process
+group set-up of dist/mesh.py, a converter of cli/tools.py and the plot CLI
+loads neither jax nor any module of misti_tpu, and its entry points default
+to the GPU (raising without one) instead of quietly picking the CPU.
 
 The import check runs in a subprocess: this test process has jax loaded
 already (tests/conftest.py).
@@ -51,6 +52,22 @@ assert rc == 0, rc
 rc = testmodel.main(["-n 1 10 -n 2 4.5 -eN 0.025 0.2 -ej 0.045 2 1 -eN 0.175 3", "-uf",
                      "--funits", "/nonexistent", "--platform", "cpu"])
 assert rc == 1, rc
+import contextlib
+import importlib.util
+import io
+import os
+import tempfile
+
+from misti_tpu_torch.dist import mesh
+from misti_tpu_torch.cli import mistiplot, tools
+
+assert mesh.init_distributed() is None  # one process: no group
+with contextlib.redirect_stdout(io.StringIO()):
+    assert tools.merge_jsfs_main([fix + "tools/chunks_a.jsfs", fix + "tools/chunks_b.jsfs"]) == 0
+    if importlib.util.find_spec("matplotlib") is not None:
+        with tempfile.TemporaryDirectory() as d:
+            assert mistiplot.main([fix + "ref_fit.mi", "--funits", "/nonexistent",
+                                   "-o", os.path.join(d, "f.pdf")]) == 0
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "misti_tpu"
              or m.startswith("misti_tpu."))
