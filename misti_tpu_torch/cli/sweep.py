@@ -16,7 +16,8 @@ misti_tpu_torch.cli.sweep ...`` the cells are split over N processes (one
 device each, ``cuda:(LOCAL_RANK % device count)``; all share the card of a
 one-card machine), and rank 0 prints the cell lines and the summary and
 writes ``-o``.  The summary then also gives ``processes``, the objective
-calls of the busiest rank and of all ranks, and each rank's kernel launches.
+calls of the busiest rank and of all ranks, and each rank's kernel launches
+(the correction sweep's and ``row_matmul``'s).
 
 Migration/pulse templates accept the literal ``ST`` for the split index,
 like the shell variable in the reference scripts.  Output: greppable
@@ -138,6 +139,7 @@ def main(argv=None) -> int:
     from ..io import psmc as io_psmc
     from ..io.units import Units
     from ..kernels.correction_fused import correction_sweep
+    from ..kernels.row_matmul import row_matmul
 
     group = init_distributed()  # None unless started by torchrun with WORLD_SIZE > 1
     world, lead = world_size(group), rank(group) == 0
@@ -225,12 +227,12 @@ def main(argv=None) -> int:
     # scenario for the summary
     for sc in scenarios:
         t_sc = time.time()
-        n0 = correction_sweep.launches
+        n0, r0 = correction_sweep.launches, row_matmul.launches
         results.update(sweep_many([sc], tol=clargs.tol, maxiter=clargs.maxiter,
                                   device=device, group=group, **stage_kw))
         per_scn_dt.append(time.time() - t_sc)
-        n = torch.tensor([correction_sweep.launches - n0])
-        launches.append(all_gather_rows(n, group, world).tolist())
+        n = torch.tensor([[correction_sweep.launches - n0, row_matmul.launches - r0]])
+        launches.append(all_gather_rows(n, group, world).T.tolist())
     if prof is not None:
         prof.__exit__(None, None, None)
     dt = time.time() - t0
@@ -287,7 +289,8 @@ def main(argv=None) -> int:
         if group is not None:
             summary["processes"] = world
             summary["objective_calls"] = {"max": res.calls, "sum": res.calls_sum}
-            summary["kernel_launches"] = launched
+            summary["kernel_launches"] = launched[0]
+            summary["row_matmul_launches"] = launched[1]
         print(json.dumps(summary))
         matrix.append(summary)
         if clargs.fout:

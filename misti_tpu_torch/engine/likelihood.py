@@ -32,6 +32,7 @@ from ..config import resolve_device, resolve_dtype
 from ..kernels.correction import fit_single_pop
 from ..kernels.correction_fused import fused_correction
 from ..kernels.expm import expm_action_pair, substep_counts
+from ..kernels.row_matmul import row_matmul
 from ..model import statespace as ss
 from .spec import ModelSpec
 
@@ -112,11 +113,14 @@ def last_rate(nc_fin, lh_last):
 
 def smooth_rates(lc_pre, smooth_w):
     """Smoothed pre-split rates (B, s, 2): ``smooth_w`` (2, s, s) for every
-    lane, or (B, 2, s, s) per lane (one batched product)."""
+    lane, or (B, 2, s, s) per lane.  The per-lane form is a product and a
+    sum over the last axis, not a batched matmul: the library's batched
+    product picks its algorithm by the batch size, so a lane's float32
+    value would depend on how many lanes there are."""
     if smooth_w.dim() == 3:
         return torch.stack(
             [lc_pre[..., 0] @ smooth_w[0].T, lc_pre[..., 1] @ smooth_w[1].T], dim=-1)
-    return (smooth_w @ lc_pre.transpose(1, 2)[..., None])[..., 0].transpose(1, 2)
+    return (smooth_w * lc_pre.transpose(1, 2)[:, :, None, :]).sum(-1).transpose(1, 2)
 
 
 class SpectrumBasis:
@@ -133,8 +137,9 @@ class SpectrumBasis:
         b2 = ss.two_pop_basis()
         b1 = ss.one_pop_basis()
         self.b2, self.b1 = b2, b1
-        self.ancient = tens(b2.ancient)
-        self.collapse = tens(b2.collapse)
+        # the products' right-hand matrices, row-major (x @ M^T = x @ ancientT)
+        self.ancientT = tens(b2.ancient.T)
+        self.collapseT = tens(b2.collapse.T)
         self.jsfs2 = tens(b2.jsfs)  # (44, 7)
         self.jsfs1 = tens(b1.jsfs)  # (8, 7)
         self.k2 = tens(np.concatenate(
@@ -170,7 +175,10 @@ def jafs_spectrum(basis: SpectrumBasis, lc, mi, pu, T_pre, T_post, catmask,
 
     Only the action of E and N1 on the carried state is needed, so each
     interval is Taylor sub-stepping with (B, 44) @ (44, 176) basis products
-    (kernels/expm.py `expm_action_pair`).
+    (kernels/expm.py `expm_action_pair`).  Every product with a constant
+    matrix is a `row_matmul`, the per-lane pulse operators are applied as a
+    product and a last-axis sum, and the interval terms are added in order,
+    so a lane's spectrum does not depend on the batch it is evaluated in.
     """
     B = lc.shape[0]
     s, n_post = T_pre.shape[1], T_post.shape[1]
@@ -186,34 +194,45 @@ def jafs_spectrum(basis: SpectrumBasis, lc, mi, pu, T_pre, T_post, catmask,
 
     jafs_pre = []
     for t in range(s):
-        p0 = _select(sample_at[t], p0 @ basis.ancient.T, p0)
+        p0 = _select(sample_at[t], row_matmul(p0, basis.ancientT), p0)
         for pop in (0, 1):
             if pulse_site[t, pop]:
-                p0 = (ss.pulse_operator(pu[:, t, pop], pop, basis.b2) @ p0[..., None])[..., 0]
+                # a product and a last-axis sum, as in smooth_rates
+                p0 = (ss.pulse_operator(pu[:, t, pop], pop, basis.b2) * p0[:, None, :]).sum(-1)
         p0, n1p = expm_action_pair(basis.k2, coeffs_pre[:, t], basis.norms2, T_pre[:, t], p0,
                                    n_loop=loops[t])
         cm = catmask[t] if catmask.dim() == 2 else catmask[:, t]
-        jafs_pre.append(cm * (n1p @ basis.jsfs2))
+        jafs_pre.append(cm * row_matmul(n1p, basis.jsfs2))
 
     # ancient rebase exactly at the split happens before the collapse
-    p0 = _select(rebase, p0 @ basis.ancient.T, p0)
-    p0 = p0 @ basis.collapse.T  # (B, 8)
+    p0 = _select(rebase, row_matmul(p0, basis.ancientT), p0)
+    p0 = row_matmul(p0, basis.collapseT)  # (B, 8)
 
     jafs_post = []
     for t in range(n_post):
         p0, n1p = expm_action_pair(basis.k1, coeffs_post[:, t], basis.norms1, T_post[:, t], p0,
                                    n_loop=loops[s + t])
-        jafs_post.append(n1p @ basis.jsfs1)
+        jafs_post.append(row_matmul(n1p, basis.jsfs1))
 
     # last interval, T = infinity: occupancy = -M^{-1} P0 (:530-540)
     m_last = ss.one_pop_matrix(lc[:, s + n_post, 0], basis.b1)
     occ_last, _ = torch.linalg.solve_ex(m_last, -p0)
-    jafs = occ_last @ basis.jsfs1
+    jafs = row_matmul(occ_last, basis.jsfs1)
     if jafs_post:
-        jafs = torch.stack(jafs_post).sum(0) + jafs
+        jafs = _sum_in_order(jafs_post) + jafs
     if jafs_pre:
-        jafs = torch.stack(jafs_pre).sum(0) + jafs
+        jafs = _sum_in_order(jafs_pre) + jafs
     return jafs
+
+
+def _sum_in_order(terms):
+    """terms[0] + terms[1] + ... left to right: elementwise adds, so a lane's
+    sum does not depend on how many lanes there are (a reduction over a
+    stacked axis picks its order by the tensor's size)."""
+    out = terms[0]
+    for t in terms[1:]:
+        out = out + t
+    return out
 
 
 def _fold(x):
@@ -223,7 +242,9 @@ def _fold(x):
 
 
 def multinomial_const(data, unfolded: bool):
-    """log n! - sum_i log d_i! of (B, 7) data spectra, per lane."""
+    """log n! - sum_i log d_i! of (B, 7) data spectra, per lane, in float64
+    (see `multinomial_llh`)."""
+    data = data.double()
     n = data.sum(-1)
     cats = data if unfolded else _fold(data)
     return torch.lgamma(n + 1) - torch.lgamma(cats + 1).sum(-1)
@@ -231,13 +252,21 @@ def multinomial_const(data, unfolded: bool):
 
 def multinomial_llh(jafs_raw, data, llh_const, unfolded: bool):
     """Multinomial llh of an unnormalised spectrum (B, 7) against data (B, 7)
-    or (7,).  Returns (llh, normalised jafs, pos): llh holds where pos."""
-    norm = jafs_raw.sum(-1)
-    jafs = jafs_raw / norm[:, None]
+    or (7,).  Returns (llh, normalised jafs, pos): llh holds where pos.
+
+    Taken in float64 and returned in the spectrum's dtype: the data term and
+    the multinomial constant are each ~1e4-1e5 nats and cancel to the llh,
+    so in float32 the llh would carry their rounding (~4e-3 nats at 4e4),
+    an order of magnitude more than the float32 spectrum itself causes."""
+    dt = jafs_raw.dtype
+    norm = jafs_raw.double().sum(-1)
+    jafs = jafs_raw.double() / norm[:, None]
+    data = data.double()
     cats, dat = (jafs, data) if unfolded else (_fold(jafs), _fold(data))
     pos = (cats > 0).all(-1) & torch.isfinite(norm) & (norm > 0)
     safe = torch.where(cats > 0, cats, torch.ones_like(cats))
-    return llh_const + (dat * torch.log(safe)).sum(-1), jafs, pos
+    llh = llh_const + (dat * torch.log(safe)).sum(-1)
+    return llh.to(dt), jafs.to(dt), pos
 
 
 @dataclasses.dataclass

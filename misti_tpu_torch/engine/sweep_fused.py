@@ -20,6 +20,11 @@ Nelder-Mead.  The pre-split correction is `fused_correction` with per-lane
 the card, its plain torch version on the CPU.  The stages after it are the
 per-split likelihood's own, fed per-lane tables.
 
+With ``correct=False`` (trueEPS) the carry into the post-split fit holds
+the pulses only, as the per-split likelihood's does; the JAX package's grid
+sweep also runs the correction chain at the uncorrected rates there, which
+moves the llh by ~2.6e-4 nats off the per-split path on its tests' toy grid.
+
 Not ported from the JAX package, and why:
 
 * the ``correction_mode`` switch (``scan``, ``fused-xla``,
@@ -42,8 +47,6 @@ import torch
 
 from ..config import resolve_device, resolve_dtype
 from ..kernels.correction_fused import fused_correction, sweep_inputs
-from ..kernels.expm import expm
-from ..model import statespace as ss
 from .likelihood import (
     SpectrumBasis,
     _pulse_update_3state,
@@ -219,16 +222,15 @@ def build_fused_sweep(
     basis = SpectrumBasis(dev, dt)
     p_start = torch.tensor([[1.0, 0.0, 0.0], [0.0, 1.0, 0.0]], dtype=dt, device=dev)
 
-    def chain_no_corr(lc_pre, T, mi_pre, pu_pre):
-        """trueEPS carry: the correction chain at the uncorrected rates,
-        expm(M3(lc, mi) T) per interval after the pulses."""
-        p = p_start.expand(lc_pre.shape[0], 2, 3)
+    def carry_no_corr(pu_pre):
+        """trueEPS carry: the pulses only, as the per-split likelihood carries
+        it (engine/likelihood.py `correct`, upstream's formulas); a pulse
+        site that is statically zero is the identity and is skipped."""
+        p = p_start.expand(pu_pre.shape[0], 2, 3)
         for t in range(s_max):
-            p = _pulse_update_3state(p, pu_pre[:, t, 0], 0)
-            p = _pulse_update_3state(p, pu_pre[:, t, 1], 1)
-            m = ss.correction_matrix(lc_pre[:, t, 0], lc_pre[:, t, 1],
-                                     mi_pre[:, t, 0], mi_pre[:, t, 1])
-            p = p @ expm(m * T[:, t, None, None], max_squarings=20).transpose(1, 2)
+            for pop in (0, 1):
+                if pulse_site[t, pop]:
+                    p = _pulse_update_3state(p, pu_pre[:, t, pop], pop)
         return p
 
     def lanes(st_idx, params):
@@ -283,7 +285,7 @@ def build_fused_sweep(
             valid = (ok > 0).all(-1).all(-1)
         else:
             lc_pre = lhp
-            nc = chain_no_corr(lhp, tp, mib, pub).sum(-1)
+            nc = carry_no_corr(pub).sum(-1)
             valid = torch.ones(B, dtype=torch.bool, device=dev)
 
         tq = take("t_post")

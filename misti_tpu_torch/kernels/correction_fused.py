@@ -701,16 +701,27 @@ def compile_libs(jobs, check: bool = True) -> dict:
     return report
 
 
-def build(variants=None, force: bool = False) -> dict:
-    """Compile the sweep kernels, one shared library per (dtype, residual
-    mode), all started together.  Returns {library name: (seconds, ptxas
-    report, ok)}; raises on a failed build."""
+def stale(jobs) -> list:
+    """The `compile_libs` jobs whose library is missing or older than its source."""
+
+    def fresh(out, src):
+        return out.exists() and out.stat().st_mtime >= src.stat().st_mtime
+
+    return [j for j in jobs if not fresh(Path(j[0]), Path(j[1]))]
+
+
+def build_jobs(variants=None, force: bool = False) -> list:
+    """The nvcc jobs of the sweep kernels, one shared library per (dtype,
+    residual mode), for `compile_libs`; without ``force`` only stale ones."""
     variants = variants or [(d, c) for d in _DTYPES for c in (True, False)]
     jobs = [(_lib_path(d, c), _CSRC, d, c, ()) for d, c in variants]
-    if not force:
-        jobs = [j for j in jobs
-                if not (j[0].exists() and j[0].stat().st_mtime >= _CSRC.stat().st_mtime)]
-    return compile_libs(jobs)
+    return jobs if force else stale(jobs)
+
+
+def build(variants=None, force: bool = False) -> dict:
+    """Compile the sweep kernels, all started together.  Returns {library
+    name: (seconds, ptxas report, ok)}; raises on a failed build."""
+    return compile_libs(build_jobs(variants, force))
 
 
 def bind(path) -> SimpleNamespace:

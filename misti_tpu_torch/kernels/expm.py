@@ -2,7 +2,9 @@
 
 Only what the likelihood slice uses.  ``expm_action_pair`` is the spectrum
 sweep's hot spot: (E p0, N1 p0) by Taylor sub-stepping against a static
-stacked basis, so every matvec is one (B, n) @ (n, c*n) product.  ``expm``
+stacked basis, so every matvec is one (B, n) @ (n, c*n) product
+(`row_matmul`: on the card a kernel whose per-lane result does not depend
+on the batch).  ``expm``
 and ``expm_m1`` are fixed-structure scaling-and-squaring Taylor-18
 (Paterson-Stockmeyer) references for the tests.  All functions are
 batch-first: matrices (..., n, n), vectors (B, n).
@@ -13,6 +15,8 @@ from __future__ import annotations
 import math
 
 import torch
+
+from .row_matmul import row_matmul
 
 _THETA_TAYLOR = 1.0  # scale so ||A||_1 <= 1: Taylor-18 truncation ~ 2e-16
 _MAX_SQUARINGS = 30
@@ -100,24 +104,18 @@ def expm_action_pair(kmat: torch.Tensor, coeffs: torch.Tensor, basis_norms,
     ``n_loop`` is max(m) when the caller already knows it (one host read for
     many intervals instead of one per call).
     """
-    n = p0.shape[-1]
-    c = coeffs.shape[-1]
     m, overflow = substep_counts(coeffs, basis_norms, t, theta, max_substeps)
     if n_loop is None:
         n_loop = int(m.max())
     h = torch.as_tensor(t, dtype=p0.dtype, device=p0.device) / m  # (B,)
     cs = coeffs * h[..., None]  # scaled rates: ||b||_1 <= theta
 
-    def matvec(v):
-        y = (v @ kmat).reshape(v.shape[:-1] + (c, n))
-        return (cs[..., None] * y).sum(-2)
-
     p = p0
     acc = torch.zeros_like(p0)
     for j in range(n_loop):
         term, ev, pv = p, p, p
         for k in range(1, degree + 1):
-            term = matvec(term) / k
+            term = row_matmul(term, kmat, cs) / k  # sum_c cs[:, c] * (term @ B_c^T)
             ev = ev + term
             pv = pv + term / (k + 1)
         live = (j < m)[..., None]

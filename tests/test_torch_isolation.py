@@ -1,8 +1,9 @@
 """The port stands alone: importing misti_tpu_torch and running a likelihood,
 a bootstrap sweep, the sweep CLI, the single-fit CLI, testmodel, the process
-group set-up of dist/mesh.py, a converter of cli/tools.py and the plot CLI
-loads neither jax nor any module of misti_tpu, and its entry points default
-to the GPU (raising without one) instead of quietly picking the CPU.
+group set-up of dist/mesh.py, a converter of cli/tools.py, the plot CLI and
+scripts/torch_matrix_card.py (a dry run on the CPU) loads neither jax nor any
+module of misti_tpu, and its entry points default to the GPU (raising without
+one) instead of quietly picking the CPU.
 
 The import check runs in a subprocess: this test process has jax loaded
 already (tests/conftest.py).
@@ -68,6 +69,16 @@ with contextlib.redirect_stdout(io.StringIO()):
         with tempfile.TemporaryDirectory() as d:
             assert mistiplot.main([fix + "ref_fit.mi", "--funits", "/nonexistent",
                                    "-o", os.path.join(d, "f.pdf")]) == 0
+spec_m = importlib.util.spec_from_file_location("torch_matrix_card",
+                                                "scripts/torch_matrix_card.py")
+mc = importlib.util.module_from_spec(spec_m)
+spec_m.loader.exec_module(mc)
+with tempfile.TemporaryDirectory() as d, contextlib.redirect_stdout(io.StringIO()):
+    # one no-migration scenario at 2 rows: its gates fail against the table (rc 1)
+    assert mc.main(["--platform", "cpu", "--bs", "1", "--maxiter", "1", "--only",
+                    "pair2.no.mig", "--out", os.path.join(d, "m.json")]) == 1
+    assert os.path.exists(os.path.join(d, "m.json"))
+import misti_tpu_torch.probe  # noqa: F401
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "misti_tpu"
              or m.startswith("misti_tpu."))
@@ -87,7 +98,8 @@ def test_sources_name_no_jax_and_no_misti_tpu():
     pattern = re.compile(
         r"^\s*(import jax|from jax|import misti_tpu(\.|\s|,|$)|from misti_tpu(\.| import))",
         re.MULTILINE)
-    files = [os.path.join(REPO, "chip_smoke.py")]
+    files = [os.path.join(REPO, "chip_smoke.py"), os.path.join(REPO, "scripts",
+                                                              "torch_matrix_card.py")]
     for root, _, names in os.walk(os.path.join(REPO, "misti_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith((".py", ".cu"))]
     assert len(files) > 10

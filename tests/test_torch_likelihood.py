@@ -143,3 +143,23 @@ def test_float32_cpu_run_tracks_float64():
     assert out32.dtype == torch.float32
     np.testing.assert_allclose(out32.double().numpy(), lik64.llh_batch(batch).numpy(),
                                rtol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_optimised_pulse_lane_does_not_depend_on_its_batch(dtype):
+    """correct_pulse with its pulse optimised: each lane's llh is bitwise the
+    same alone, in sub-batches and in the whole batch (the per-lane pulse
+    operator is applied as a product and a last-axis sum, as the card needs),
+    and the float32 run tracks the float64 one."""
+    args, kw = _spec_args(_case("correct_pulse"))
+    args[5] = [[2, 4, 0.15, 1]]
+    lik = build_likelihood(build_spec(*args, **kw), device="cpu", dtype=dtype)
+    batch = np.linspace(0.0, 0.7, 37)[:, None]  # finite llh up to ~0.75 here
+    full = lik.llh_batch(batch)
+    assert full.dtype == dtype and bool(torch.isfinite(full).all())
+    for sel in (slice(0, 1), slice(5, 11), slice(3, 37, 5), slice(0, 36)):
+        assert torch.equal(lik.llh_batch(batch[sel]), full[sel])
+    if dtype == torch.float32:
+        lik64 = build_likelihood(build_spec(*args, **kw), device="cpu")
+        np.testing.assert_allclose(full.double().numpy(), lik64.llh_batch(batch).numpy(),
+                                   rtol=1e-5)
