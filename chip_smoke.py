@@ -9,12 +9,15 @@ Phases, each fatal on failure:
      blocks per SM (an ``attrs`` line each; a float32 spill fails);
   2. each kernel variant against its plain torch version on the card, in
      float64 and float32, at s = 28 intervals and 512 lanes, and
-     ``row_matmul`` at each of the spectrum's products, with every prefix of
-     SUB_WIDTHS lanes bitwise what it is in the whole batch;
+     ``row_matmul`` at each of the spectrum's products and ``expm_action``
+     at both of the spectrum's bases (per-lane interval lengths with zeros,
+     runaway lanes), with every prefix of SUB_WIDTHS lanes bitwise what it
+     is in the whole batch;
   3. the main path at full size -- the bench workload (64 intervals, split
      28, one band, 4096 candidates) through ``build_likelihood(...).llh_batch``
      for cpfit, ECT and trueEPS -- with launch counts, timings and the
-     float32 run held against the port's own float64 run on the card;
+     float32 run (float32 parameters, a float64 likelihood) held against the
+     port's own float64 run on the card;
   4. real inputs (tests/fixtures/sweep*.psmc, sweep.jsfs) through the port's
      readers and ``build_spec`` with smoothing on;
   5. float32 ``torch.log`` against float64 on the card;
@@ -25,9 +28,10 @@ Phases, each fatal on failure:
      ``--maxiter 256`` and ECT, each held against the JAX package's table of
      the same command (scripts/sweep1band_r05_cap256.npz,
      scripts/sweep_ect_r05.npz; the float64 judge in both modes), with the
-     kernels timed at the sweep's first-stage width, that iteration's lanes
-     bitwise the same alone, in sub-batches and in the whole batch, and a
-     small staged-vs-uninterrupted ECT sweep, bitwise;
+     kernels timed at the sweep's first-stage width, no cell left
+     unconverged, that iteration's lanes bitwise the same alone, in
+     sub-batches and in the whole batch, and a small staged-vs-uninterrupted
+     ECT sweep, bitwise;
   7. the single-fit path in float64 through the port's CLIs
      (``misti_tpu_torch.cli.misti`` / ``cli.testmodel`` ``main``, default
      platform): upstream's fits of tests/test_cli.py against its .mi files
@@ -48,9 +52,11 @@ Phases, each fatal on failure:
      through ``sweep_many`` at full width, ``--maxiter`` MATRIX_MAXITER, with
      the no-migration scenario's argmax histogram held to the JAX package's
      table and the kernels at the two-band scenario's first-stage width.
-Prints each phase's wall, a ``kernels`` JSON line, the card's name and power
-limit, and as the last line ``{"ok": true, "device": {...}}``.  Exits nonzero
-without a card.
+Every path requires each of its kernels (the correction sweep, ``row_matmul``,
+``expm_action``) to have launched, and prints their launches per objective
+call.  Prints each phase's wall, a ``kernels`` JSON line, the card's name and
+power limit, and as the last line ``{"ok": true, "device": {...}}``.  Exits
+nonzero without a card.
 """
 
 from __future__ import annotations
@@ -81,6 +87,10 @@ REPLACES = "misti_tpu/kernels/correction_pallas.py:798"
 # pallas_call): on the card it keeps a lane's value independent of its batch
 RM_SOURCE = "misti_tpu_torch/kernels/csrc/row_matmul.cu"
 RM_REPLACES = "misti_tpu/kernels/expm.py:277"
+# expm_action stands for the JAX package's spectrum sub-step loop (an XLA
+# while loop of matvecs, no pallas_call): one launch per interval
+EA_SOURCE = "misti_tpu_torch/kernels/csrc/expm_action.cu"
+EA_REPLACES = "misti_tpu/kernels/expm.py:235"
 # widths at which a lane's value must be bitwise what it is in the whole batch
 SUB_WIDTHS = (1, 6, 42, 960)
 # per-lane table cases of phase 2: the sweep path's s_max and its narrowest
@@ -179,6 +189,12 @@ def cuda_ms(fn, reps: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
+def tolerance(dtype):
+    """(rtol, atol, peak FP rate) of a kernel instance of this dtype."""
+    f64 = str(dtype) == "torch.float64"
+    return (1e-6, 1e-9, PEAK_OPS["float64"]) if f64 else (1e-4, 1e-6, PEAK_OPS["float32"])
+
+
 def check_close(name, got, want, rtol, atol):
     """Finite entries within atol + rtol*|want|; NaN and +-inf masks equal.
     Returns the max abs error over finite entries."""
@@ -240,27 +256,114 @@ def kernel_inputs(rng, s, B, *, mig, pulse, per_lane, dtype, device):
     return torch.tensor(inp, dtype=dtype, device=device).contiguous()
 
 
-def capture_row_matmul(fn, pick: int = 300):
-    """Run ``fn()`` and return the arguments of its ``pick``-th sub-step
-    matvec (kernels/expm.py's call of ``row_matmul``; the last one if there
-    are fewer): the spectrum's (B, 44) @ (44, 176) instance at a path's
-    shapes and values."""
-    from misti_tpu_torch.kernels import expm as kexpm
+def capture_row_matmul(fn, shape=(44, 8)):
+    """Run ``fn()`` and return the arguments of its first ``row_matmul``
+    product with a ``shape`` matrix (default the collapse map, once per
+    likelihood call): that instance at a path's shapes and values."""
+    from misti_tpu_torch.engine import likelihood as lk
 
-    orig, seen, n = kexpm.row_matmul, [], [0]
+    orig, seen = lk.row_matmul, []
 
     def rec(v, K, cs=None):
-        if n[0] <= pick and K.shape[0] == 44:
-            seen[:] = [(v, K, cs)]
-        n[0] += 1
+        if not seen and tuple(K.shape) == tuple(shape):
+            seen.append((v, K, cs))
         return orig(v, K, cs)
 
-    kexpm.row_matmul = rec
+    lk.row_matmul = rec
     try:
         fn()
     finally:
-        kexpm.row_matmul = orig
+        lk.row_matmul = orig
     return seen[0]
+
+
+def capture_expm_action(fn, n: int = 44, pick: int = 24):
+    """Run ``fn()`` and return (args, kwargs) of its ``pick``-th spectrum
+    interval (``expm_action_pair`` call) at ``n`` states, the last if there
+    are fewer: the kernel's instance at a path's shapes and values."""
+    from misti_tpu_torch.engine import likelihood as lk
+
+    orig, seen, count = lk.expm_action_pair, [], [0]
+
+    def rec(*a, **kw):
+        if a[4].shape[-1] == n:
+            if count[0] <= pick:
+                seen[:] = [(a, kw)]
+            count[0] += 1
+        return orig(*a, **kw)
+
+    lk.expm_action_pair = rec
+    try:
+        fn()
+    finally:
+        lk.expm_action_pair = orig
+    return seen[0]
+
+
+def expm_action_record(ea, torch, name, captured, launches):
+    """``expm_action`` on one instance of a path: held against its plain
+    version (the loop it replaces, whose matvec is the row_matmul kernel:
+    rtol 1e-4 / atol 1e-6 in float32, 1e-6 / 1e-9 in float64, NaN masks
+    equal; whether bitwise is logged), each prefix of SUB_WIDTHS lanes
+    bitwise equal to its rows of the whole batch, timed beside that loop
+    (the old route) and one library call (``torch.linalg.matrix_exp`` of
+    the (B, 2n, 2n) block generators [[M t, t I], [0, 0]], which hold e^{Mt}
+    and N1), and held to its bound (`expm_action_ops` over the FP rate of
+    its dtype, `expm_action_bytes` over HBM)."""
+    from misti_tpu_torch.kernels import expm as kexpm
+
+    a, kw = captured
+    kmat, coeffs, norms, t, p0 = a
+    f64 = p0.dtype == torch.float64
+    rtol, atol = (1e-6, 1e-9) if f64 else (1e-4, 1e-6)
+    B, n = p0.shape
+    C = coeffs.shape[1]
+    cm = kw.get("catmask")
+    Q = kw["jsfs"].shape[1] if kw.get("jsfs") is not None else 0
+    run = lambda: ea.expm_action(*a, **kw)  # noqa: E731
+    plain = lambda: kexpm.expm_action_pair_plain(*a, **kw)  # noqa: E731
+    got, want = run(), plain()
+    errs = [check_close(f"{name} {o}", g, w, rtol, atol)
+            for o, g, w in zip(("E p0", "N1 p0", "projection"), got, want) if g is not None]
+    bitwise = all(torch.equal(g.nan_to_num(), w.nan_to_num())
+                  for g, w in zip(got, want) if g is not None)
+    per_lane_t = t.numel() == B and B > 1
+    for w in SUB_WIDTHS:
+        if w < B:
+            kw_w = dict(kw, catmask=cm[:w]) if cm is not None and cm.dim() == 2 else kw
+            part = ea.expm_action(kmat, coeffs[:w], norms, t[:w] if per_lane_t else t, p0[:w],
+                                  **kw_w)
+            require(all(torch.equal(x.nan_to_num(), y[:w].nan_to_num())
+                        for x, y in zip(part, got) if x is not None),
+                    f"{name}: the first {w} lanes differ from their rows of the {B}-lane batch")
+    k_ms = cuda_ms(run, 20)
+    p_ms = cuda_ms(plain, 3)
+    tt = (t if per_lane_t else t.reshape(-1)[:1].expand(B)).to(p0.dtype)
+    gen = torch.einsum("bc,kcm->bkm", coeffs * tt[:, None], kmat.view(n, C, n))
+    aug = torch.zeros((B, 2 * n, 2 * n), dtype=p0.dtype, device=p0.device)
+    aug[:, :n, :n] = gen
+    aug[:, n:, :n] = tt[:, None, None] * torch.eye(n, dtype=p0.dtype, device=p0.device)
+    lib_ms = cuda_ms(lambda: torch.linalg.matrix_exp(aug), 3)
+    m, _ = kexpm.substep_counts(coeffs, norms, t)
+    ops = ea.expm_action_ops(m, n, C, Q=Q)
+    nbytes = ea.expm_action_bytes(B, n, C, itemsize=p0.element_size(), per_lane_t=per_lane_t,
+                                  Q=Q, per_lane_catmask=cm is not None and cm.dim() == 2)
+    t_ops = ops / PEAK_OPS["float64" if f64 else "float32"]
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    rec = {"name": name, "route": "cuda", "source": EA_SOURCE, "replaces": EA_REPLACES,
+           "launches": launches, "max_abs_err": max(errs), "ms": k_ms, "plain_ms": p_ms,
+           "bound_ms": max(t_ops, t_bytes) * 1e3,
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes", "library_ms": lib_ms}
+    rec["share_of_bound"] = rec["bound_ms"] / k_ms
+    log(f"{name} at B = {B}, n = {n}, C = {C}, {str(p0.dtype)[6:]}, sub-steps per lane "
+        f"{int(m.min())}-{int(m.max())} (sum {int(m.sum())}), t == 0 on "
+        f"{int((t == 0).sum()) if per_lane_t else int(bool((t == 0).all())) * B} lanes: "
+        f"{k_ms:.4f} ms, the plain loop (old route) {p_ms:.4f} ms, library {lib_ms:.4f} ms, "
+        f"bound {rec['bound_ms']:.5f} ms ({rec['bound_by']}; {ops:.3e} ops, {nbytes} bytes), "
+        f"{rec['share_of_bound']:.1%} of bound, max|d| {max(errs):.3e}, bitwise equal to the "
+        f"plain loop {bitwise}, {launches} launches on the path; widths "
+        f"{[w for w in SUB_WIDTHS if w < B]} bitwise as in the batch")
+    return rec
 
 
 def row_matmul_record(rm, torch, name, args, launches):
@@ -305,11 +408,15 @@ def row_matmul_record(rm, torch, name, args, launches):
     return rec
 
 
-def phase_attrs(cf, torch):
+def phase_attrs(cf, ea, torch):
     """Registers, spill bytes and resident blocks per SM of every template
-    instance at s = 28 (misti_correction_sweep_attrs), one line each; no
-    float32 instance may spill."""
+    instance of the correction sweep at s = 28 (misti_correction_sweep_attrs)
+    and of expm_action, one line each; no float32 instance may spill."""
     for dtype in (torch.float32, torch.float64):
+        for a in ea.kernel_attrs(dtype):
+            log("attrs " + json.dumps({"library": f"expm_action_{str(dtype)[6:]}", **a}))
+            require(dtype == torch.float64 or a["local_bytes"] == 0,
+                    f"expm_action {a}: a float32 instance uses local memory")
         for cpfit in (True, False):
             lib = f"correction_sweep_{str(dtype)[6:]}_{'cpfit' if cpfit else 'ect'}"
             for a in cf.kernel_attrs(dtype, cpfit, KERNEL_S):
@@ -318,10 +425,11 @@ def phase_attrs(cf, torch):
                         f"{lib} {a}: a float32 instance uses local memory")
 
 
-def phase_kernels(cf, rm, torch, dev):
+def phase_kernels(cf, rm, ea, torch, dev):
     """Every variant of the sweep kernel against its plain version; then
-    ``row_matmul`` at each of the spectrum's instances against its plain
-    version, with every prefix of SUB_WIDTHS lanes bitwise as in the batch."""
+    ``row_matmul`` at each of the spectrum's instances and ``expm_action`` at
+    both of its bases against their plain versions, with every prefix of
+    SUB_WIDTHS lanes bitwise as in the batch."""
     rng = np.random.default_rng(SEED)
     variants = []
     for cpfit in (True, False):
@@ -394,8 +502,53 @@ def phase_kernels(cf, rm, torch, dev):
     require(moved == n, f"row_matmul launch counter moved {moved}, expected {n}")
     log(f"row_matmul kernel-vs-plain: {n} launches, launch counter +{moved}")
 
+    from misti_tpu_torch.kernels import expm as kexpm
 
-def phase_main_path(cf, rm, torch, dev, bench):
+    before, n = ea.expm_action.launches, 0
+    for dtype, rtol, atol in ((torch.float64, 1e-6, 1e-9), (torch.float32, 1e-4, 1e-6)):
+        basis = SpectrumBasis(dev, dtype)
+        for B in PER_LANE_B:
+            for kname, K, norms, J in (("k2", basis.k2, basis.norms2, basis.jsfs2),
+                                       ("k1", basis.k1, basis.norms1, basis.jsfs1)):
+                # rates over three decades (ragged sub-step counts), every 5th
+                # lane t == 0, a lane past the sub-step cap, a lane with a NaN rate
+                gen = np.random.default_rng(SEED + B)
+                C = norms.shape[0]
+                coeffs = gen.uniform(0.0, 1.0, (B, C)) * 10.0 ** gen.uniform(-1, 2, (B, 1))
+                t = gen.uniform(0.01, 0.5, B)
+                t[::5] = 0.0
+                coeffs[3], coeffs[min(7, B - 1), 0] = 1e6, np.nan
+                p0 = gen.uniform(0.0, 1.0, (B, K.shape[0]))
+                p0 /= p0.sum(-1, keepdims=True)
+                cm = (gen.uniform(0.0, 1.0, (B, 7)) > 0.3).astype(float)
+                coeffs, t, p0, cm = (torch.tensor(x, dtype=dtype, device=dev)
+                                     for x in (coeffs, t, p0, cm))
+                got = ea.expm_action(K, coeffs, norms, t, p0, jsfs=J, catmask=cm)
+                n += 1
+                want = kexpm.expm_action_pair_plain(K, coeffs, norms, t, p0, jsfs=J, catmask=cm)
+                tag = f"expm_action {kname} B={B} {str(dtype)[6:]}"
+                errs = [check_close(f"{tag} {o}", g, w, rtol, atol)
+                        for o, g, w in zip(("E p0", "N1 p0", "projection"), got, want)]
+                bitwise = all(torch.equal(g.nan_to_num(), w.nan_to_num())
+                              for g, w in zip(got, want))
+                for w in SUB_WIDTHS:
+                    if w < B:
+                        part = ea.expm_action(K, coeffs[:w], norms, t[:w], p0[:w], jsfs=J,
+                                              catmask=cm[:w])
+                        n += 1
+                        require(all(torch.equal(x.nan_to_num(), y[:w].nan_to_num())
+                                    for x, y in zip(part, got)),
+                                f"{tag}: the first {w} lanes differ from the batch's")
+                log(f"kernel-vs-plain {tag}: max|d| {max(errs):.3e} (rtol {rtol:g} atol "
+                    f"{atol:g}), NaN lanes {int(got[0][:, 0].isnan().sum())}, bitwise equal to "
+                    f"the plain loop {bitwise}; prefixes of {[w for w in SUB_WIDTHS if w < B]} "
+                    f"lanes bitwise as in the batch")
+    moved = ea.expm_action.launches - before
+    require(moved == n, f"expm_action launch counter moved {moved}, expected {n}")
+    log(f"expm_action kernel-vs-plain: {n} launches, launch counter +{moved}")
+
+
+def phase_main_path(cf, rm, ea, torch, dev, bench):
     """The bench workload through llh_batch; returns per-kernel records."""
     from misti_tpu_torch import build_likelihood
 
@@ -411,6 +564,7 @@ def phase_main_path(cf, rm, torch, dev, bench):
         reps = 3
         cf.correction_sweep.launches = 0
         rm.row_matmul.launches = 0
+        ea.expm_action.launches = 0
         t0 = time.perf_counter()
         for _ in range(reps):
             out = lik.llh_batch(params)
@@ -418,9 +572,11 @@ def phase_main_path(cf, rm, torch, dev, bench):
         dt = time.perf_counter() - t0
         launches = cf.correction_sweep.launches
         rm_launches = rm.row_matmul.launches
+        ea_launches = ea.expm_action.launches
         require(rm_launches > 0, f"{name}: row_matmul never launched")
+        require(ea_launches > 0, f"{name}: expm_action never launched")
         if spec.cpfit and spec.correct:
-            rm_case = (lik, params, rm_launches)
+            rm_case = (lik, params, rm_launches, ea_launches)
         evals = batch * reps / dt
         lik64 = build_likelihood(spec, device=dev, dtype=torch.float64)
         out64 = lik64.llh_batch(bench.bench_params(batch, dev, torch.float64))
@@ -441,7 +597,8 @@ def phase_main_path(cf, rm, torch, dev, bench):
                 f"{dt / reps * 1e3:.2f} ms/llh_batch), f32 vs f64 max rel dllh {rel:.3e}, "
                 f"finite {int(fin32.sum())}/{batch}, argmax {am32}, correction {corr_ms:.3f} ms, "
                 f"spectrum {spec_ms:.3f} ms, sweep launches {launches}, row_matmul launches "
-                f"{rm_launches}")
+                f"{rm_launches} ({rm_launches / reps:g} per llh_batch), expm_action launches "
+                f"{ea_launches} ({ea_launches / reps:g} per llh_batch)")
         if spec.correct:
             require(launches == reps, f"{name}: sweep kernel launched {launches} times in {reps} batches")
             s = spec.splitT
@@ -449,12 +606,13 @@ def phase_main_path(cf, rm, torch, dev, bench):
             opts = lik.sweep_opts
             k_ms = cuda_ms(lambda: cf.correction_sweep(inp, **opts), 5)
             p_ms = cuda_ms(lambda: cf.correction_sweep_plain(inp, **opts), 1)
+            rtol, atol, peak = tolerance(inp.dtype)  # float64: the likelihood's dtype
             err = check_close(name + " sweep", cf.correction_sweep(inp, **opts),
-                              cf.correction_sweep_plain(inp, **opts), 1e-4, 1e-6)
+                              cf.correction_sweep_plain(inp, **opts), rtol, atol)
             work = cf.sweep_work(inp, **opts)
             ops = cf.sweep_ops(work, s, batch, **opts)
             nbytes = 15 * s * batch * inp.element_size()
-            t_ops, t_bytes = ops / PEAK_OPS["float32"], nbytes / HBM_BYTES_PER_S
+            t_ops, t_bytes = ops / peak, nbytes / HBM_BYTES_PER_S
             records[name] = {
                 "name": "correction_sweep_" + ("cpfit" if spec.cpfit else "ect"),
                 "route": "cuda", "source": SOURCE, "replaces": REPLACES,
@@ -468,10 +626,12 @@ def phase_main_path(cf, rm, torch, dev, bench):
                      f"{records[name]['bound_ms']:.5f} ms ({ops:.3e} ops, {nbytes} bytes), "
                      f"work {json.dumps(work)}")
         log(line)
-    lik, params, rm_launches = rm_case
+    lik, params, rm_launches, ea_launches = rm_case
     args = capture_row_matmul(lambda: lik.llh_batch(params))
+    ea_args = capture_expm_action(lambda: lik.llh_batch(params), 44, 14)
     return [records[k] for k in sorted(records)] + [
-        row_matmul_record(rm, torch, "row_matmul_k2_bench", args, rm_launches)]
+        row_matmul_record(rm, torch, "row_matmul_collapse_bench", args, rm_launches),
+        expm_action_record(ea, torch, "expm_action_k2_bench", ea_args, ea_launches)]
 
 
 def phase_real_inputs(torch, dev):
@@ -522,13 +682,14 @@ def _sweep_kernel_record(cf, torch, fs, points, st_idx, launches, name):
     s, B = inp.shape[1], inp.shape[2]
     got = cf.correction_sweep(inp, **opts)
     want = cf.correction_sweep_plain(inp, **opts)
-    err = check_close(name, got, want, 1e-4, 1e-6)
+    rtol, atol, peak = tolerance(inp.dtype)
+    err = check_close(name, got, want, rtol, atol)
     k_ms = cuda_ms(lambda: cf.correction_sweep(inp, **opts), 10)
     p_ms = cuda_ms(lambda: cf.correction_sweep_plain(inp, **opts), 1)
     work = cf.sweep_work(inp, **opts)
     ops = cf.sweep_ops(work, s, B, **opts)
     nbytes = 15 * s * B * inp.element_size()
-    t_ops, t_bytes = ops / PEAK_OPS["float32"], nbytes / HBM_BYTES_PER_S
+    t_ops, t_bytes = ops / peak, nbytes / HBM_BYTES_PER_S
     rec = {"name": name, "route": "cuda", "source": SOURCE,
            "replaces": REPLACES, "launches": launches, "max_abs_err": err, "ms": k_ms,
            "plain_ms": p_ms, "bound_ms": max(t_ops, t_bytes) * 1e3,
@@ -653,10 +814,11 @@ def _hold_to_table(torch, dev, bootstrap, inp, data, name, flags, maxiter, ref, 
         f"{gain64.max():.3e}")
 
 
-def phase_sweep(cf, rm, torch, dev):
-    """The north-star bootstrap x split-time sweep on the card (float32),
-    cpfit (--maxiter 256) and ECT, each against the JAX package's table of
-    the same command; the per-lane kernel and row_matmul at the first
+def phase_sweep(cf, rm, ea, torch, dev):
+    """The north-star bootstrap x split-time sweep on the card (float32
+    parameters), cpfit (--maxiter 256) and ECT, each against the JAX
+    package's table of the same command, with no cell left unconverged; the
+    per-lane kernel, row_matmul and expm_action (both bases) at the first
     stage's width; each lane of the first iteration bitwise the same alone,
     in sub-batches and in the whole batch; a small staged-vs-uninterrupted
     ECT sweep, bitwise.  Returns the kernel records."""
@@ -683,6 +845,7 @@ def phase_sweep(cf, rm, torch, dev):
         buf = io.StringIO()
         cf.correction_sweep.launches = 0
         rm.row_matmul.launches = 0
+        ea.expm_action.launches = 0
         t = time.perf_counter()
         with contextlib.redirect_stderr(buf):
             res = bootstrap.sweep(inp.times, inp.lambdas, data, SWEEP_SPLITS, SWEEP_MI, (),
@@ -691,7 +854,9 @@ def phase_sweep(cf, rm, torch, dev):
         wall = time.perf_counter() - t
         launches = cf.correction_sweep.launches
         rm_launches = rm.row_matmul.launches
+        ea_launches = ea.expm_action.launches
         require(rm_launches > 0, f"sweep {mode}: row_matmul never launched")
+        require(ea_launches > 0, f"sweep {mode}: expm_action never launched")
         stages = [ln for ln in buf.getvalue().splitlines() if ln.startswith("# sweep stage")]
         for ln in stages:
             log(f"sweep {mode} {ln[2:]}")
@@ -706,11 +871,13 @@ def phase_sweep(cf, rm, torch, dev):
                       table_nfev=int(ref["nfev"][i, r]))
                  for i, r in zip(*np.nonzero(~res.converged))]
         log(f"sweep {mode}: cells unconverged at --maxiter {maxiter}: {json.dumps(stuck)}")
+        require(not stuck, f"sweep {mode}: {len(stuck)} cells unconverged at --maxiter {maxiter}")
         evals = int(res.nfev.sum())
         log(f"sweep {mode}: {cells} cells, {evals} llh evals (table: {int(ref['nfev'].sum())}), "
             f"{wall:.2f} s wall, {evals / wall:.1f} evals/s, {res.calls} objective calls = "
             f"{launches} kernel launches, {g}, cells with different nfev "
-            f"{int((res.nfev != ref['nfev']).sum())}")
+            f"{int((res.nfev != ref['nfev']).sum())}; per objective call: row_matmul "
+            f"{rm_launches / res.calls:.2f}, expm_action {ea_launches / res.calls:.2f} launches")
 
         # one Nelder-Mead iteration at the first stage's width and at the
         # narrowest stage width of this run; the per-lane kernel at the first
@@ -747,9 +914,15 @@ def phase_sweep(cf, rm, torch, dev):
         log(f"sweep {mode}: the first iteration's lanes alone and in sub-batches of "
             f"{[int(p.numel()) for p in picks]} lanes: bitwise as in the {W * P}-lane batch")
         if mode == "cpfit":
-            args = capture_row_matmul(lambda: fs.llh(st_l, x_l, d_l))
-            records.append(row_matmul_record(rm, torch, "row_matmul_k2_sweep", args,
-                                             rm_launches))
+            call = lambda: fs.llh(st_l, x_l, d_l)  # noqa: E731
+            records.append(row_matmul_record(rm, torch, "row_matmul_collapse_sweep",
+                                             capture_row_matmul(call), rm_launches))
+            # pre-split interval 24: lanes of splits 20-24 hold T == 0 there;
+            # post-split interval 30: lanes of splits 24-27 do
+            records.append(expm_action_record(ea, torch, "expm_action_k2_sweep",
+                                              capture_expm_action(call, 44, 24), ea_launches))
+            records.append(expm_action_record(ea, torch, "expm_action_k1_sweep",
+                                              capture_expm_action(call, 8, 30), ea_launches))
         if mode == "cpfit":
             cpfit_run = dict(res=res, wall=wall, fs=fs, points=points, st_all=st_all)
 
@@ -834,7 +1007,7 @@ def _objective_launches(torch, lik, points) -> int:
     return sum(e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
 
 
-def phase_single_fit(cf, rm, torch, dev):
+def phase_single_fit(cf, rm, ea, torch, dev):
     """The single-fit path on the card, float64, through the port's CLIs:
     upstream's fits (tests/test_cli.py's commands) against its .mi files and
     --debug golden; the north-star command at split 24 (cpfit, ECT, cpfit
@@ -901,11 +1074,14 @@ def phase_single_fit(cf, rm, torch, dev):
             out_mi = os.path.join(tmp, name + ".mi")
             cf.correction_sweep.launches = 0
             rm.row_matmul.launches = 0
+            ea.expm_action.launches = 0
             torch.cuda.synchronize()
             rc, lines, wall = _run_cli(misti.main, argv + ["-o", out_mi])
             launches = cf.correction_sweep.launches
             rm_launches = rm.row_matmul.launches
+            ea_launches = ea.expm_action.launches
             require(rm_launches > 0, f"north-star {name}: row_matmul never launched")
+            require(ea_launches > 0, f"north-star {name}: expm_action never launched")
             require(rc == 0, f"north-star {name}: rc {rc}")
             fit = parse_fit_stdout(lines)
             calls = fit["nit"] + 1  # the simplex's calls and the -bs 0 re-evaluation
@@ -947,15 +1123,20 @@ def phase_single_fit(cf, rm, torch, dev):
             rec["share_of_bound"] = rec["bound_ms"] / k_ms
             records.append(rec)
             if name == "cpfit":
-                args = capture_row_matmul(lambda: lik.llh_flags_batch(points))
-                records.append(row_matmul_record(rm, torch, "row_matmul_k2_single_fit_f64", args,
-                                                 rm_launches))
+                call = lambda: lik.llh_flags_batch(points)  # noqa: E731
+                records.append(row_matmul_record(rm, torch, "row_matmul_collapse_single_fit_f64",
+                                                 capture_row_matmul(call), rm_launches))
+                records.append(expm_action_record(ea, torch, "expm_action_k2_single_fit_f64",
+                                                  capture_expm_action(call, 44, 12),
+                                                  ea_launches))
             log(f"north-star {name} (float64, card): x {fit['x']} llh {fit['llh']!r}; JAX "
                 f"package x {ref['x']} llh {ref['llh']!r}; rel dllh {d_llh:.3e}, max |dx| "
                 f"{d_x:.3e}; (card, JAX) {json.dumps(counters)}; converged {fit['converged']}")
             log(f"north-star {name} timing: {wall:.3f} s wall, {calls} objective calls, "
                 f"{wall / calls * 1e3:.1f} ms per objective call, {fit['calls'] / wall:.1f} "
-                f"evals/s, {per_call} kernel launches per objective call ({n + 5} lanes); "
+                f"evals/s, {per_call} kernel launches per objective call ({n + 5} lanes), of "
+                f"them row_matmul {rm_launches / calls:.2f} and expm_action "
+                f"{ea_launches / calls:.2f}; "
                 f"correction kernel at s = {s}, B = {B}, float64, shared tables: {k_ms:.4f} ms, "
                 f"plain {p_ms:.1f} ms, bound {rec['bound_ms']:.5f} ms ({rec['bound_by']}; "
                 f"{ops:.3e} ops, {nbytes} bytes), {rec['share_of_bound']:.1%} of bound, "
@@ -997,7 +1178,7 @@ def _run_ranks(cmd, timeout):
     return proc.returncode, out, err, time.perf_counter() - t
 
 
-def phase_sharded_sweep(cf, rm, torch, dev, cpfit_run):
+def phase_sharded_sweep(cf, rm, ea, torch, dev, cpfit_run):
     """Phase 6's north-star cpfit sweep (--maxiter 256, float32, bootstrap
     seed 0) through ``misti_tpu_torch.cli.sweep`` as SHARDED_RANKS ranks of
     ``torch.distributed.run`` on the one card, held to phase 6's gates
@@ -1038,8 +1219,8 @@ def phase_sharded_sweep(cf, rm, torch, dev, cpfit_run):
     launches, calls = summary["kernel_launches"], summary["objective_calls"]
     require(min(launches) > 0 and sum(launches) == calls["sum"],
             f"sharded sweep: kernel launches {launches} for objective calls {calls}")
-    require(min(summary["row_matmul_launches"]) > 0,
-            f"sharded sweep: row_matmul launches per rank {summary['row_matmul_launches']}")
+    for k in ("row_matmul_launches", "expm_action_launches"):
+        require(min(summary[k]) > 0, f"sharded sweep: {k} per rank {summary[k]}")
     require(np.array_equal(z["data"], data),
             "sharded sweep: the ranks' spectra differ from make_bootstrap_data(seed=0)")
     conv = z["nfev"] < 2 + 6 * maxiter  # one parameter: 2 + 6 per iteration
@@ -1052,7 +1233,9 @@ def phase_sharded_sweep(cf, rm, torch, dev, cpfit_run):
         f"{z['llh'].size} cells, {int(z['nfev'].sum())} llh evals, wall {wall:.2f} s with "
         f"start-up (the CLI's sweep wall {summary['wallclock_s']} s; one process, phase 6: "
         f"{cpfit_run['wall']:.2f} s), objective calls busiest rank {calls['max']} / all ranks "
-        f"{calls['sum']} (one process {one.calls}), kernel launches per rank {launches}; "
+        f"{calls['sum']} (one process {one.calls}), kernel launches per rank {launches}, "
+        f"expm_action launches per rank {summary['expm_action_launches']} "
+        f"({sum(summary['expm_action_launches']) / calls['sum']:.2f} per objective call); "
         f"against phase 6's table: {int(same.sum())}/{same.size} cells bitwise equal, max "
         f"|dllh| {d_one:.3e}, cells with different nfev {int((z['nfev'] != one.nfev).sum())}; "
         f"{g}; the CLI's summary {json.dumps(summary)}")
@@ -1073,7 +1256,7 @@ def phase_sharded_sweep(cf, rm, torch, dev, cpfit_run):
     return rec
 
 
-def phase_scenarios(cf, rm, torch, dev):
+def phase_scenarios(cf, rm, ea, torch, dev):
     """The --scenarios path: two scenarios of the 16-scenario matrix
     (tests/fixtures/matrix/matrix.json; MATRIX_SCENARIOS) resident in one
     process through ``sweep_many``, at full width (808 cells each, bootstrap
@@ -1108,6 +1291,7 @@ def phase_scenarios(cf, rm, torch, dev):
                               smooth=False, correct=True))
     cf.correction_sweep.launches = 0
     rm.row_matmul.launches = 0
+    ea.expm_action.launches = 0
     t = time.perf_counter()
     buf = io.StringIO()
     with contextlib.redirect_stderr(buf):
@@ -1117,7 +1301,9 @@ def phase_scenarios(cf, rm, torch, dev):
     wall = time.perf_counter() - t
     launches = cf.correction_sweep.launches
     rm_launches = rm.row_matmul.launches
+    ea_launches = ea.expm_action.launches
     require(rm_launches > 0, "scenarios: row_matmul never launched")
+    require(ea_launches > 0, "scenarios: expm_action never launched")
     calls = sum(r.calls for r in results.values())
     for ln in buf.getvalue().splitlines():
         if ln.startswith("# sweep stage"):
@@ -1138,7 +1324,8 @@ def phase_scenarios(cf, rm, torch, dev):
             f"{table[name]['argmax_hist']}), split CI [{ci['ci'][0]:.6f}, {ci['ci'][1]:.6f}] "
             f"(table {table[name]['split_ci_gens']})")
     log(f"scenarios: {len(results)} scenarios resident in one process, {wall:.2f} s, "
-        f"{calls} objective calls = {launches} kernel launches")
+        f"{calls} objective calls = {launches} kernel launches; per objective call: row_matmul "
+        f"{rm_launches / calls:.2f}, expm_action {ea_launches / calls:.2f} launches")
 
     # the per-lane kernel at the two-band scenario's first-stage width
     name = MATRIX_SCENARIOS[0]
@@ -1156,12 +1343,14 @@ def phase_scenarios(cf, rm, torch, dev):
     log(f"scenarios {name}: one Nelder-Mead iteration {ms:.1f} ms at {cells} cells "
         f"({points.shape[0] * points.shape[1]} lanes)")
     W, P, n = points.shape
-    args = capture_row_matmul(lambda: fs.llh(st_all.repeat_interleave(P),
-                                             points.reshape(W * P, n),
-                                             data_all.repeat_interleave(P, dim=0)))
+    call = lambda: fs.llh(st_all.repeat_interleave(P), points.reshape(W * P, n),  # noqa: E731
+                          data_all.repeat_interleave(P, dim=0))
     return [_sweep_kernel_record(cf, torch, fs, points, st_all, launches,
                                  "correction_sweep_cpfit_per_lane_two_band"),
-            row_matmul_record(rm, torch, "row_matmul_k2_two_band", args, rm_launches)]
+            row_matmul_record(rm, torch, "row_matmul_collapse_two_band",
+                              capture_row_matmul(call), rm_launches),
+            expm_action_record(ea, torch, "expm_action_k2_two_band",
+                               capture_expm_action(call, 44, 24), ea_launches)]
 
 
 def main() -> int:
@@ -1173,6 +1362,7 @@ def main() -> int:
     sys.path.insert(0, HERE)
     from misti_tpu_torch import bench
     from misti_tpu_torch.kernels import correction_fused as cf
+    from misti_tpu_torch.kernels import expm_action as ea
     from misti_tpu_torch.kernels import row_matmul as rm
 
     dev = torch.device("cuda", 0)
@@ -1180,7 +1370,8 @@ def main() -> int:
     log(f"gpu: {gpu}; torch {torch.__version__} cuda {torch.version.cuda}")
 
     t0 = time.perf_counter()
-    report = cf.compile_libs(cf.build_jobs(force=True) + rm.build_jobs(force=True))
+    report = cf.compile_libs(cf.build_jobs(force=True) + rm.build_jobs(force=True)
+                             + ea.build_jobs(force=True))
     log(f"build: {time.perf_counter() - t0:.1f} s wall for {len(report)} libraries")
     for lib, (secs, ptxas, _) in sorted(report.items()):
         lines = [ln.strip() for ln in ptxas.splitlines()
@@ -1195,16 +1386,17 @@ def main() -> int:
         log(f"phase {name}: {time.perf_counter() - t:.1f} s wall")
         return out
 
-    phase("1 attrs", phase_attrs, cf, torch)
-    phase("2 kernels", phase_kernels, cf, rm, torch, dev)
-    kernels = phase("3 main path", phase_main_path, cf, rm, torch, dev, bench)
+    phase("1 attrs", phase_attrs, cf, ea, torch)
+    phase("2 kernels", phase_kernels, cf, rm, ea, torch, dev)
+    kernels = phase("3 main path", phase_main_path, cf, rm, ea, torch, dev, bench)
     phase("4 real inputs", phase_real_inputs, torch, dev)
     phase("5 log", phase_log, torch, dev)
-    sweep_records, cpfit_run = phase("6 sweep path", phase_sweep, cf, rm, torch, dev)
+    sweep_records, cpfit_run = phase("6 sweep path", phase_sweep, cf, rm, ea, torch, dev)
     kernels += sweep_records
-    kernels += phase("7 single fit", phase_single_fit, cf, rm, torch, dev)
-    kernels.append(phase("8 sharded sweep", phase_sharded_sweep, cf, rm, torch, dev, cpfit_run))
-    kernels += phase("9 scenarios", phase_scenarios, cf, rm, torch, dev)
+    kernels += phase("7 single fit", phase_single_fit, cf, rm, ea, torch, dev)
+    kernels.append(phase("8 sharded sweep", phase_sharded_sweep, cf, rm, ea, torch, dev,
+                         cpfit_run))
+    kernels += phase("9 scenarios", phase_scenarios, cf, rm, ea, torch, dev)
     log(f"chip_smoke: {time.perf_counter() - t0:.1f} s wall in all")
 
     log("kernels " + json.dumps({"kernels": kernels}))

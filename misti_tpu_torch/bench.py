@@ -71,9 +71,9 @@ def profile(lik, params, reps: int = 10) -> None:
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
+    from .engine.likelihood import SpectrumBasis
     from .kernels.correction_fused import correction_sweep, sweep_inputs
     from .kernels.expm import expm_action_pair
-    from .model import statespace as ss
 
     def ms(fn):
         fn()
@@ -87,14 +87,10 @@ def profile(lik, params, reps: int = 10) -> None:
     s = lik.spec.splitT
     mi, pu = lik.map_params(params)
     lc, _, _ = lik.correct(mi, pu)
-    b2 = ss.two_pop_basis()
-    kmat = torch.as_tensor(np.concatenate(
-        [b2.coal[0].T, b2.coal[1].T, b2.migr[0].T, b2.migr[1].T], axis=1),
-        dtype=lik.dtype, device=lik.device)
-    norms = np.abs(np.stack([b2.coal[0], b2.coal[1], b2.migr[0], b2.migr[1]])).sum(1).max(1)
+    basis = SpectrumBasis(lik.device, lc.dtype)
     t = s // 2  # one pre-split interval of the spectrum: the 44-state action
     coeffs = torch.cat([lc[:, t], mi[:, t]], dim=-1)
-    p0 = torch.zeros((params.shape[0], 44), dtype=lik.dtype, device=lik.device)
+    p0 = torch.zeros((params.shape[0], 44), dtype=lc.dtype, device=lik.device)
     p0[:, 2] = 1.0
     stages = {
         "llh_batch": ms(lambda: lik.llh_batch(params)),
@@ -102,7 +98,8 @@ def profile(lik, params, reps: int = 10) -> None:
         "correct": ms(lambda: lik.correct(mi, pu)),
         "spectrum": ms(lambda: lik.spectrum(lc, mi, pu)),
         f"expm_action_pair (44 states, interval {t})": ms(
-            lambda: expm_action_pair(kmat, coeffs, norms, float(lik.spec.times[t]), p0)),
+            lambda: expm_action_pair(basis.k2, coeffs, basis.norms2, float(lik.spec.times[t]),
+                                     p0)),
     }
     if lik.spec.correct and s:
         inp = sweep_inputs(mi[:, :s], pu[:, :s], *lik.sweep_tables)
@@ -131,7 +128,7 @@ def main() -> int:
     mode = os.environ.get("MISTI_BENCH_MODE", "")
     batch = int(os.environ.get("MISTI_BENCH_BATCH", "4096"))
     reps = int(os.environ.get("MISTI_BENCH_REPS", "60"))
-    lik = build_likelihood(bench_spec(mode))  # CUDA, float32; raises without a card
+    lik = build_likelihood(bench_spec(mode))  # CUDA, float32 parameters; raises without a card
     params = bench_params(batch, lik.device, lik.dtype)
 
     out = lik.llh_batch(params)  # builds and loads the kernel

@@ -17,13 +17,14 @@ device each, ``cuda:(LOCAL_RANK % device count)``; all share the card of a
 one-card machine), and rank 0 prints the cell lines and the summary and
 writes ``-o``.  The summary then also gives ``processes``, the objective
 calls of the busiest rank and of all ranks, and each rank's kernel launches
-(the correction sweep's and ``row_matmul``'s).
+(the correction sweep's, ``row_matmul``'s and ``expm_action``'s).
 
 Migration/pulse templates accept the literal ``ST`` for the split index,
 like the shell variable in the reference scripts.  Output: greppable
 per-cell lines (`bs_id = ... splitT = ... llh = ...`), an .npz results
-table, and the split-time CI.  ``--platform`` defaults to ``cuda`` (float32)
-and raises without a card; ``cpu`` runs in float64.
+table, and the split-time CI.  ``--platform`` defaults to ``cuda`` (float32
+parameters, a float64 likelihood) and raises without a card; ``cpu`` runs
+in float64.
 """
 
 from __future__ import annotations
@@ -72,8 +73,8 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=0, help="bootstrap seed")
     p.add_argument("-o", "--fout", default="", help="output .npz results table")
     p.add_argument("--platform", default="cuda", choices=("cuda", "cpu"),
-                   help="cuda (default, float32; raises without a card) or "
-                        "cpu (float64)")
+                   help="cuda (default: float32 parameters, float64 likelihood; "
+                        "raises without a card) or cpu (float64)")
     p.add_argument("--profile", default="",
                    help="directory for a torch.profiler trace of the sweep; "
                         "a device busy/launch summary goes to stderr")
@@ -139,6 +140,7 @@ def main(argv=None) -> int:
     from ..io import psmc as io_psmc
     from ..io.units import Units
     from ..kernels.correction_fused import correction_sweep
+    from ..kernels.expm_action import expm_action
     from ..kernels.row_matmul import row_matmul
 
     group = init_distributed()  # None unless started by torchrun with WORLD_SIZE > 1
@@ -227,11 +229,12 @@ def main(argv=None) -> int:
     # scenario for the summary
     for sc in scenarios:
         t_sc = time.time()
-        n0, r0 = correction_sweep.launches, row_matmul.launches
+        kernels = (correction_sweep, row_matmul, expm_action)
+        before = [k.launches for k in kernels]
         results.update(sweep_many([sc], tol=clargs.tol, maxiter=clargs.maxiter,
                                   device=device, group=group, **stage_kw))
         per_scn_dt.append(time.time() - t_sc)
-        n = torch.tensor([[correction_sweep.launches - n0, row_matmul.launches - r0]])
+        n = torch.tensor([[k.launches - b for k, b in zip(kernels, before)]])
         launches.append(all_gather_rows(n, group, world).T.tolist())
     if prof is not None:
         prof.__exit__(None, None, None)
@@ -291,6 +294,7 @@ def main(argv=None) -> int:
             summary["objective_calls"] = {"max": res.calls, "sum": res.calls_sum}
             summary["kernel_launches"] = launched[0]
             summary["row_matmul_launches"] = launched[1]
+            summary["expm_action_launches"] = launched[2]
         print(json.dumps(summary))
         matrix.append(summary)
         if clargs.fout:

@@ -2,10 +2,11 @@
 
 Entry points take an explicit ``device`` and ``dtype``.  The default device
 is ``cuda``: with no card, resolution raises instead of quietly picking the
-CPU (tests and CPU users pass ``device="cpu"``).  The default dtype follows
-the device, as the JAX package does per backend: float32 on CUDA (the
-throughput path), float64 on the CPU (the parity path against the float64
-reference).
+CPU (tests and CPU users pass ``device="cpu"``).  A run's dtype is that of
+its parameters and its optimiser's simplex, and follows the device as the
+JAX package's does per backend: float32 on CUDA, float64 on the CPU.  The
+likelihood itself computes in ``LLH_DTYPE`` (float64) whatever the run's
+dtype.
 """
 
 from __future__ import annotations
@@ -20,6 +21,14 @@ import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
+# Every stage of the likelihood, and the llh it returns, in float64.  The
+# llh is a difference of category terms over ~1e5 sites, so it needs ~1e-9
+# relative precision in the spectrum: in float32 every tensor passed between
+# stages (rates, carry, state vector) added ~1e-4 nats of noise, ~2e-3 in
+# all, above the optimiser's 1e-4 fatol, and float32 sweeps left cells that
+# never converged (PERF.md section 6, tests/torch_float32_noise_stages.py).
+LLH_DTYPE = torch.float64
+
 
 def resolve_device(device=None) -> torch.device:
     """``None`` means CUDA; asking for CUDA without a card raises."""
@@ -33,7 +42,7 @@ def resolve_device(device=None) -> torch.device:
 
 
 def resolve_dtype(device: torch.device, dtype=None) -> torch.dtype:
-    """float32 on CUDA, float64 on the CPU, unless given."""
+    """A run's dtype: float32 on CUDA, float64 on the CPU, unless given."""
     if dtype is not None:
         return dtype
     return torch.float32 if device.type == "cuda" else torch.float64

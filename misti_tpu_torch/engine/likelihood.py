@@ -28,10 +28,10 @@ from typing import Callable
 import numpy as np
 import torch
 
-from ..config import resolve_device, resolve_dtype
+from ..config import LLH_DTYPE, resolve_device, resolve_dtype
 from ..kernels.correction import fit_single_pop
 from ..kernels.correction_fused import fused_correction
-from ..kernels.expm import expm_action_pair, substep_counts
+from ..kernels.expm import expm_action_pair
 from ..kernels.row_matmul import row_matmul
 from ..model import statespace as ss
 from .spec import ModelSpec
@@ -174,11 +174,13 @@ def jafs_spectrum(basis: SpectrumBasis, lc, mi, pu, T_pre, T_post, catmask,
     that may be nonzero (P(0) is the identity, so the others are skipped).
 
     Only the action of E and N1 on the carried state is needed, so each
-    interval is Taylor sub-stepping with (B, 44) @ (44, 176) basis products
-    (kernels/expm.py `expm_action_pair`).  Every product with a constant
-    matrix is a `row_matmul`, the per-lane pulse operators are applied as a
-    product and a last-axis sum, and the interval terms are added in order,
-    so a lane's spectrum does not depend on the batch it is evaluated in.
+    interval is Taylor sub-stepping against the stacked basis, with N1 p0's
+    projection onto the categories folded in (kernels/expm.py
+    `expm_action_pair`: one kernel launch per interval on the card).  Every
+    other product with a constant matrix is a `row_matmul`, the per-lane
+    pulse operators are applied as a product and a last-axis sum, and the
+    interval terms are added in order, so a lane's spectrum does not depend
+    on the batch it is evaluated in.
     """
     B = lc.shape[0]
     s, n_post = T_pre.shape[1], T_post.shape[1]
@@ -186,33 +188,30 @@ def jafs_spectrum(basis: SpectrumBasis, lc, mi, pu, T_pre, T_post, catmask,
     p0[:, 2] = 1.0
     coeffs_pre = torch.cat([lc[:, :s], mi[:, :s]], dim=-1)  # (B, s, 4)
     coeffs_post = lc[:, s:s + n_post, :1]  # (B, n_post, 1)
-    # sub-step loop bounds of every interval in one host read
-    m_pre, _ = substep_counts(coeffs_pre, basis.norms2, T_pre)
-    m_post, _ = substep_counts(coeffs_post, basis.norms1, T_post)
-    loops = torch.cat([m_pre.amax(0), m_post.amax(0)]).to(torch.int64).tolist() \
-        if B else [0] * (s + n_post)
 
     jafs_pre = []
     for t in range(s):
-        p0 = _select(sample_at[t], row_matmul(p0, basis.ancientT), p0)
+        if sample_at[t] is not None:
+            p0 = _select(sample_at[t], row_matmul(p0, basis.ancientT), p0)
         for pop in (0, 1):
             if pulse_site[t, pop]:
                 # a product and a last-axis sum, as in smooth_rates
                 p0 = (ss.pulse_operator(pu[:, t, pop], pop, basis.b2) * p0[:, None, :]).sum(-1)
-        p0, n1p = expm_action_pair(basis.k2, coeffs_pre[:, t], basis.norms2, T_pre[:, t], p0,
-                                   n_loop=loops[t])
         cm = catmask[t] if catmask.dim() == 2 else catmask[:, t]
-        jafs_pre.append(cm * row_matmul(n1p, basis.jsfs2))
+        p0, _, jafs_t = expm_action_pair(basis.k2, coeffs_pre[:, t], basis.norms2, T_pre[:, t],
+                                         p0, jsfs=basis.jsfs2, catmask=cm)
+        jafs_pre.append(jafs_t)
 
     # ancient rebase exactly at the split happens before the collapse
-    p0 = _select(rebase, row_matmul(p0, basis.ancientT), p0)
+    if rebase is not None:
+        p0 = _select(rebase, row_matmul(p0, basis.ancientT), p0)
     p0 = row_matmul(p0, basis.collapseT)  # (B, 8)
 
     jafs_post = []
     for t in range(n_post):
-        p0, n1p = expm_action_pair(basis.k1, coeffs_post[:, t], basis.norms1, T_post[:, t], p0,
-                                   n_loop=loops[s + t])
-        jafs_post.append(row_matmul(n1p, basis.jsfs1))
+        p0, _, jafs_t = expm_action_pair(basis.k1, coeffs_post[:, t], basis.norms1,
+                                         T_post[:, t], p0, jsfs=basis.jsfs1)
+        jafs_post.append(jafs_t)
 
     # last interval, T = infinity: occupancy = -M^{-1} P0 (:530-540)
     m_last = ss.one_pop_matrix(lc[:, s + n_post, 0], basis.b1)
@@ -275,7 +274,7 @@ class Likelihood:
 
     spec: ModelSpec
     device: torch.device
-    dtype: torch.dtype
+    dtype: torch.dtype  # the parameters'; every stage computes in LLH_DTYPE
     llh: Callable  # params (n_par,) -> () llh (-inf on failure)
     llh_aux: Callable  # params (n_par,) -> (llh, dict(jafs, lc, pr, valid, ...))
     llh_batch: Callable  # params (B, n_par) -> (B,) llh
@@ -293,11 +292,14 @@ class Likelihood:
 def build_likelihood(spec: ModelSpec, *, device=None, dtype=None) -> Likelihood:
     """Build the batched likelihood for ``spec``.
 
-    ``device`` defaults to CUDA and raises when there is no card; ``dtype``
-    defaults to float32 on CUDA and float64 on the CPU.
+    ``device`` defaults to CUDA and raises when there is no card; ``dtype``,
+    the parameters' (rounded to it on the way in), defaults to float32 on
+    CUDA and float64 on the CPU.  Every stage computes in LLH_DTYPE and the
+    llh comes back in it.
     """
     dev = resolve_device(device)
     dt = resolve_dtype(dev, dtype)
+    ct = LLH_DTYPE
     s = spec.splitT
     # statically migration-free: no fixed bands and no optimised rates
     static_no_mig = (len(spec.opt_mi) == 0) and bool(np.all(spec.mi_base == 0))
@@ -307,7 +309,7 @@ def build_likelihood(spec: ModelSpec, *, device=None, dtype=None) -> Likelihood:
                   "static_no_mig": static_no_mig, "has_pulse": has_pulse}
 
     def tens(a):
-        return torch.as_tensor(np.asarray(a, dtype=float), dtype=dt, device=dev)
+        return torch.as_tensor(np.asarray(a, dtype=float), dtype=ct, device=dev)
 
     numT = spec.numT
     sd = spec.sample_date
@@ -338,7 +340,7 @@ def build_likelihood(spec: ModelSpec, *, device=None, dtype=None) -> Likelihood:
     lh_post1, lh_last1 = lh_t[None, s:numT - 1], lh_t[None, numT - 1]
     catmask_t = tens(catmask)
     smooth_w = tens(spec.smooth_w) if (spec.smooth and s > 0) else None
-    basis = SpectrumBasis(dev, dt)
+    basis = SpectrumBasis(dev, ct)
 
     def map_params(params):
         """MapParameters (MigrationInference.py:291-298): overwrite the
@@ -356,7 +358,7 @@ def build_likelihood(spec: ModelSpec, *, device=None, dtype=None) -> Likelihood:
 
     def correct(mi, pu):
         B = mi.shape[0]
-        p0 = torch.tensor([[1.0, 0.0, 0.0], [0.0, 1.0, 0.0]], dtype=dt, device=dev)
+        p0 = torch.tensor([[1.0, 0.0, 0.0], [0.0, 1.0, 0.0]], dtype=ct, device=dev)
         p0b = p0.expand(B, 2, 3)
         lh_pre = lh_t[:s].expand(B, s, 2)
         if not spec.correct or s == 0:
@@ -408,10 +410,11 @@ def build_likelihood(spec: ModelSpec, *, device=None, dtype=None) -> Likelihood:
                      "corr_failed": nonneg & ~valid_corr}
 
     def as_params(params):
-        """(B, n_par) tensor on the device; a single vector becomes B = 1."""
+        """(B, n_par) tensor on the device, rounded to the run's dtype and
+        computed in LLH_DTYPE; a single vector becomes B = 1."""
         if not torch.is_tensor(params):
             params = np.asarray(params, dtype=float)
-        p = torch.as_tensor(params).to(device=dev, dtype=dt)
+        p = torch.as_tensor(params).to(device=dev, dtype=dt).to(ct)
         return p.reshape(1, n_par) if p.dim() <= 1 else p.reshape(p.shape[0], n_par)
 
     data_t = tens(spec.data_jafs)
@@ -432,7 +435,7 @@ def build_likelihood(spec: ModelSpec, *, device=None, dtype=None) -> Likelihood:
         single = (params.dim() if torch.is_tensor(params) else np.ndim(params)) <= 1
         p = as_params(params)
         d = torch.as_tensor(np.asarray(data7, dtype=float) if not torch.is_tensor(data7)
-                            else data7).to(device=dev, dtype=dt)
+                            else data7).to(device=dev, dtype=ct)
         d = d.expand(p.shape[0], 7)
         llh = _core(p, d, multinomial_const(d, spec.unfolded))[0]
         return llh[0] if single else llh

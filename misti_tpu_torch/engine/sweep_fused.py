@@ -45,7 +45,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from ..config import resolve_device, resolve_dtype
+from ..config import LLH_DTYPE, resolve_device, resolve_dtype
 from ..kernels.correction_fused import fused_correction, sweep_inputs
 from .likelihood import (
     SpectrumBasis,
@@ -68,7 +68,7 @@ class FusedSweep:
     n_params: int
     init_params: np.ndarray
     device: torch.device
-    dtype: torch.dtype
+    dtype: torch.dtype  # the parameters'; the llh computes in LLH_DTYPE
     llh: callable  # (st_idx (B,), params (B, n), data7 (B, 7)) -> (B,) llh
     tables: dict  # the stacked per-split tables (host numpy)
     shape_key: str  # a hash of the static structure (grid sizes and flags)
@@ -120,11 +120,14 @@ def build_fused_sweep(
     fractional: each split's spec pre-splits its containing interval on the
     host (the same preprocessing as build_spec / the reference
     MigrationInference.py:89-99), so lanes carry different tables.
-    ``device`` defaults to CUDA (raising without a card); ``dtype`` to
-    float32 on CUDA and float64 on the CPU.
+    ``device`` defaults to CUDA (raising without a card); ``dtype``, the
+    parameters' (rounded to it on the way in), to float32 on CUDA and
+    float64 on the CPU.  Every stage computes in LLH_DTYPE and the llh comes
+    back in it.
     """
     dev = resolve_device(device)
     dt = resolve_dtype(dev, dtype)
+    ct = LLH_DTYPE
     splits = [float(v) for v in split_times]
 
     # per-split specs (host side; also validates the model per split).
@@ -218,9 +221,9 @@ def build_fused_sweep(
     pulse_site = (pu_base != 0).any(0) | (mi_masks[:, n_opt_mi:] != 0).any((0, 1))
     sample_rows = tuple(int(t) for t in np.flatnonzero(is_sample.any(0)))
     rebase_any = bool(np.any(np.asarray(s_of) == sd))
-    tables = _device_tables(tables_np, dev, dt)
-    basis = SpectrumBasis(dev, dt)
-    p_start = torch.tensor([[1.0, 0.0, 0.0], [0.0, 1.0, 0.0]], dtype=dt, device=dev)
+    tables = _device_tables(tables_np, dev, ct)
+    basis = SpectrumBasis(dev, ct)
+    p_start = torch.tensor([[1.0, 0.0, 0.0], [0.0, 1.0, 0.0]], dtype=ct, device=dev)
 
     def carry_no_corr(pu_pre):
         """trueEPS carry: the pulses only, as the per-split likelihood carries
@@ -239,7 +242,7 @@ def build_fused_sweep(
         migration and pulse rates (B, s_max, 2)."""
         st_idx = torch.as_tensor(st_idx, device=dev).to(torch.int64).reshape(-1)
         B = st_idx.shape[0]
-        params = torch.as_tensor(params).to(device=dev, dtype=dt).reshape(B, n_par)
+        params = torch.as_tensor(params).to(device=dev, dtype=dt).to(ct).reshape(B, n_par)
 
         def take(name):
             return tables[name].index_select(0, st_idx)
@@ -274,7 +277,7 @@ def build_fused_sweep(
     def llh_fn(st_idx, params, data7):
         params, take, tp, lhp, mib, pub = lanes(st_idx, params)
         B = params.shape[0]
-        data7 = torch.as_tensor(data7).to(device=dev, dtype=dt).reshape(B, 7)
+        data7 = torch.as_tensor(data7).to(device=dev, dtype=ct).reshape(B, 7)
         nonneg = (params >= 0).all(-1)
 
         # pre-split correction sweep: the kernel, per-lane tables

@@ -2,9 +2,11 @@
 
 Only what the likelihood slice uses.  ``expm_action_pair`` is the spectrum
 sweep's hot spot: (E p0, N1 p0) by Taylor sub-stepping against a static
-stacked basis, so every matvec is one (B, n) @ (n, c*n) product
-(`row_matmul`: on the card a kernel whose per-lane result does not depend
-on the batch).  ``expm``
+stacked basis.  On the card it is one launch of the expm_action kernel per
+call (kernels/expm_action.py); its plain version
+``expm_action_pair_plain`` makes every matvec one (B, n) @ (n, c*n)
+product (`row_matmul`).  Both give a lane a value that does not depend on
+its batch.  ``expm``
 and ``expm_m1`` are fixed-structure scaling-and-squaring Taylor-18
 (Paterson-Stockmeyer) references for the tests.  All functions are
 batch-first: matrices (..., n, n), vectors (B, n).
@@ -16,6 +18,7 @@ import math
 
 import torch
 
+from .expm_action import expm_action
 from .row_matmul import row_matmul
 
 _THETA_TAYLOR = 1.0  # scale so ||A||_1 <= 1: Taylor-18 truncation ~ 2e-16
@@ -85,10 +88,12 @@ def substep_counts(coeffs: torch.Tensor, basis_norms, t, theta: float = 2.0,
     return m, overflow
 
 
-def expm_action_pair(kmat: torch.Tensor, coeffs: torch.Tensor, basis_norms,
-                     t, p0: torch.Tensor, theta: float = 2.0,
-                     degree: int = 20, max_substeps: int = 1024,
-                     n_loop: int | None = None):
+def expm_action_pair_plain(kmat: torch.Tensor, coeffs: torch.Tensor, basis_norms,
+                           t, p0: torch.Tensor, theta: float = 2.0,
+                           degree: int = 20, max_substeps: int = 1024,
+                           matvec=None,
+                           jsfs: torch.Tensor | None = None,
+                           catmask: torch.Tensor | None = None):
     """(E p0, N1 p0) for M = sum_c coeffs[:, c] * B_c without forming E or N1.
 
     ``kmat`` = [B_0^T | ... | B_{c-1}^T] (n, c*n), ``coeffs`` (B, c), ``p0``
@@ -101,12 +106,14 @@ def expm_action_pair(kmat: torch.Tensor, coeffs: torch.Tensor, basis_norms,
     ``theta * max_substeps`` the lane is poisoned with NaN (the likelihood's
     positivity mask turns it into llh = -inf).
 
-    ``n_loop`` is max(m) when the caller already knows it (one host read for
-    many intervals instead of one per call).
+    ``matvec(v, K, cs)`` is the product ``sum_c cs[:, c] * (v @ K)[:, c-th
+    block]`` (default `row_matmul`: on the card the row_matmul kernel).
+    With ``jsfs`` (n, Q) it also returns N1 p0's projection ``matvec(N1 p0,
+    jsfs)``, times ``catmask`` when given: (E p0, N1 p0, projection).
     """
+    matvec = row_matmul if matvec is None else matvec
     m, overflow = substep_counts(coeffs, basis_norms, t, theta, max_substeps)
-    if n_loop is None:
-        n_loop = int(m.max())
+    n_loop = int(m.max()) if m.numel() else 0
     h = torch.as_tensor(t, dtype=p0.dtype, device=p0.device) / m  # (B,)
     cs = coeffs * h[..., None]  # scaled rates: ||b||_1 <= theta
 
@@ -115,7 +122,7 @@ def expm_action_pair(kmat: torch.Tensor, coeffs: torch.Tensor, basis_norms,
     for j in range(n_loop):
         term, ev, pv = p, p, p
         for k in range(1, degree + 1):
-            term = row_matmul(term, kmat, cs) / k  # sum_c cs[:, c] * (term @ B_c^T)
+            term = matvec(term, kmat, cs) / k  # sum_c cs[:, c] * (term @ B_c^T)
             ev = ev + term
             pv = pv + term / (k + 1)
         live = (j < m)[..., None]
@@ -123,4 +130,25 @@ def expm_action_pair(kmat: torch.Tensor, coeffs: torch.Tensor, basis_norms,
         acc = torch.where(live, acc + h[..., None] * pv, acc)
     bad = torch.full((), float("nan"), dtype=p0.dtype, device=p0.device)
     ov = overflow[..., None]
-    return torch.where(ov, bad, p), torch.where(ov, bad, acc)
+    p, acc = torch.where(ov, bad, p), torch.where(ov, bad, acc)
+    if jsfs is None:
+        return p, acc
+    proj = matvec(acc, jsfs)
+    return p, acc, proj if catmask is None else proj * catmask
+
+
+def expm_action_pair(kmat: torch.Tensor, coeffs: torch.Tensor, basis_norms,
+                     t, p0: torch.Tensor, theta: float = 2.0,
+                     degree: int = 20, max_substeps: int = 1024,
+                     jsfs: torch.Tensor | None = None,
+                     catmask: torch.Tensor | None = None):
+    """`expm_action_pair_plain` on the CPU; on a CUDA tensor one launch of
+    the expm_action kernel (kernels/expm_action.py), which computes each
+    lane's sub-step count on the card, or raises.  Returns (E p0, N1 p0),
+    and with ``jsfs`` also the projection."""
+    if p0.device.type == "cpu":
+        return expm_action_pair_plain(kmat, coeffs, basis_norms, t, p0, theta, degree,
+                                      max_substeps, jsfs=jsfs, catmask=catmask)
+    out = expm_action(kmat, coeffs, basis_norms, t, p0, theta=theta, degree=degree,
+                      max_substeps=max_substeps, jsfs=jsfs, catmask=catmask)
+    return out if jsfs is not None else out[:2]

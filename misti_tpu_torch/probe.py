@@ -4,10 +4,11 @@
 
 The north-star sweep is upstream's test.bs command on the repo's fixtures
 (tests/fixtures/sweep*.psmc + sweep.jsfs, ``--splits 20 27 -bs 100 -mi 1 4
-ST 3 1 -uf``, bootstrap seed 0; 808 cells), float32 on the card.
+ST 3 1 -uf``, bootstrap seed 0; 808 cells), as the card runs it: float32
+parameters, a float64 likelihood.
 
-``width`` asks whether a lane's float32 value depends on the batch it is
-evaluated in.  It takes the sweep's first Nelder-Mead iteration (808 cells x
+``width`` asks whether a lane's value depends on the batch it is evaluated
+in.  It takes the sweep's first Nelder-Mead iteration (808 cells x
 6 trial points = 4848 lanes) and one cell's 6 lanes, and
 
 * evaluates the 6 lanes alone and inside the 4848-lane batch, records every
@@ -37,6 +38,7 @@ import sys
 import numpy as np
 import torch
 
+from .config import LLH_DTYPE
 from .engine import likelihood as lk
 from .engine import sweep_fused as sf
 from .engine.bootstrap import _lane_objective, make_bootstrap_data
@@ -169,7 +171,7 @@ def op_checks(fs, tr, st, params, rng_seed=0):
     the library forms the path no longer uses (cuBLAS GEMMs and batched
     products, a reduction over a stacked axis): does a lane get the same
     value in a sub-batch as in the whole batch?"""
-    dev, dt = fs.device, fs.dtype
+    dev, dt = fs.device, LLH_DTYPE  # the stages' dtype
     B = st.shape[0]
     basis = lk.SpectrumBasis(dev, dt)
     gen = torch.Generator(device="cpu").manual_seed(rng_seed)
@@ -220,7 +222,7 @@ def op_checks(fs, tr, st, params, rng_seed=0):
         "sum(-1) over 7": (lambda t: t.sum(-1), (terms[0],)),
         "cumsum dim 1 (B,30,2)": (lambda t: torch.cumsum(t, dim=1), (dec,)),
         "sum(1) (B,30,2)": (lambda t: t.sum(1), (dec,)),
-        "expm_action_pair pre-split (torch ops)": (
+        "expm_action_pair pre-split (the expm_action kernel on the card)": (
             lambda c, t, v: torch.cat(lk.expm_action_pair(pre[0], c, pre[2], t, v), -1),
             (c4, pre[3], v44)),
         "fit_single_pop": (lambda a, b, c: kc.fit_single_pop(a, b, c),

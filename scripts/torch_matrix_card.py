@@ -8,7 +8,8 @@ Runs ``python -m misti_tpu_torch.cli.sweep --scenarios
 tests/fixtures/matrix/matrix.json -bs 100 -uf --nosmooth --cpfit`` (the JAX
 package's command of MATRIXBENCH_r05.json; ``--ect`` drops ``--cpfit``), in
 this process, on the scenarios whose names match ``--only`` (fnmatch, e.g.
-'pair3.*'), float32 on the card, and judges every scenario:
+'pair3.*'), float32 parameters on the card (the likelihood computes in
+float64), and judges every scenario:
 
 cpfit, against the JAX package's TPU table (MATRIXBENCH_r05.json
 ``per_scenario``, cell lines in scripts/matrix_r05.out):
@@ -31,8 +32,9 @@ launches, unconverged cells, the histogram and CI, the judge, and the card's
 and mode) and exits 1 if a gate failed.  ``--merge`` combines such files into
 one (later entries replace earlier ones of the same scenario and mode).
 
-A fitted scenario takes ~4-6 minutes on an H100 (its stragglers run to
---maxiter), so run one scenario group per process, e.g.
+A fitted cpfit scenario takes 0.4-5 s on an H100 (ECT more: its
+post-split fit), so the whole cpfit matrix fits in one process; one
+scenario group per process, e.g.
     python scripts/torch_matrix_card.py --only 'pair3.*' --out matrix_pair3_cpfit.json
 """
 

@@ -21,6 +21,10 @@ seed 0, ECT, smoothing on), on the CPU:
 * on both sides of the port's largest float32 step, the post-split
   interval whose fitted rate differs most between float32 and float64.
 
+The port's float32 run has computed its likelihood in float64 since the
+float32 llh's noise was found above the optimiser's fatol
+(tests/torch_float32_noise_stages.py rebuilds the all-float32 pipeline).
+
 Prints one JSON object per cell.  Runs in ~2-4 minutes on a few CPU cores.
 """
 
