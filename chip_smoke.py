@@ -10,14 +10,14 @@ Phases, each fatal on failure:
   2. each kernel variant against its plain torch version on the card, in
      float64 and float32, at s = 28 intervals and 512 lanes, and
      ``row_matmul`` at each of the spectrum's products and ``expm_action``
-     at both of the spectrum's bases (per-lane interval lengths with zeros,
-     runaway lanes), with every prefix of SUB_WIDTHS lanes bitwise what it
-     is in the whole batch;
+     (float64 only) at both of the spectrum's bases (per-lane interval
+     lengths with zeros, runaway lanes), with every prefix of SUB_WIDTHS
+     lanes bitwise what it is in the whole batch;
   3. the main path at full size -- the bench workload (64 intervals, split
      28, one band, 4096 candidates) through ``build_likelihood(...).llh_batch``
-     for cpfit, ECT and trueEPS -- with launch counts, timings and the
-     float32 run (float32 parameters, a float64 likelihood) held against the
-     port's own float64 run on the card;
+     for cpfit, ECT and trueEPS -- with launch counts, timings, and the
+     float32 run (float32 parameters, a float64 likelihood) bitwise equal to
+     the float64 run on the same parameters, its llh in LLH_DTYPE;
   4. real inputs (tests/fixtures/sweep*.psmc, sweep.jsfs) through the port's
      readers and ``build_spec`` with smoothing on;
   5. float32 ``torch.log`` against float64 on the card;
@@ -303,19 +303,19 @@ def capture_expm_action(fn, n: int = 44, pick: int = 24):
 def expm_action_record(ea, torch, name, captured, launches):
     """``expm_action`` on one instance of a path: held against its plain
     version (the loop it replaces, whose matvec is the row_matmul kernel:
-    rtol 1e-4 / atol 1e-6 in float32, 1e-6 / 1e-9 in float64, NaN masks
-    equal; whether bitwise is logged), each prefix of SUB_WIDTHS lanes
-    bitwise equal to its rows of the whole batch, timed beside that loop
-    (the old route) and one library call (``torch.linalg.matrix_exp`` of
-    the (B, 2n, 2n) block generators [[M t, t I], [0, 0]], which hold e^{Mt}
-    and N1), and held to its bound (`expm_action_ops` over the FP rate of
-    its dtype, `expm_action_bytes` over HBM)."""
+    rtol 1e-6 / atol 1e-9 in float64, NaN masks equal; whether bitwise is
+    logged), each prefix of SUB_WIDTHS lanes bitwise equal to its rows of
+    the whole batch, timed beside that loop (the old route) and one library
+    call (``torch.linalg.matrix_exp`` of the (B, 2n, 2n) block generators
+    [[M t, t I], [0, 0]], which hold e^{Mt} and N1), and held to its bound
+    (`expm_action_ops`, the work the function needs, over the FP64 rate,
+    `expm_action_bytes` over HBM)."""
     from misti_tpu_torch.kernels import expm as kexpm
 
     a, kw = captured
     kmat, coeffs, norms, t, p0 = a
-    f64 = p0.dtype == torch.float64
-    rtol, atol = (1e-6, 1e-9) if f64 else (1e-4, 1e-6)
+    require(p0.dtype == torch.float64, f"{name}: expm_action runs in float64, not {p0.dtype}")
+    rtol, atol = 1e-6, 1e-9
     B, n = p0.shape
     C = coeffs.shape[1]
     cm = kw.get("catmask")
@@ -345,10 +345,10 @@ def expm_action_record(ea, torch, name, captured, launches):
     aug[:, n:, :n] = tt[:, None, None] * torch.eye(n, dtype=p0.dtype, device=p0.device)
     lib_ms = cuda_ms(lambda: torch.linalg.matrix_exp(aug), 3)
     m, _ = kexpm.substep_counts(coeffs, norms, t)
-    ops = ea.expm_action_ops(m, n, C, Q=Q)
+    ops = ea.expm_action_ops(m, kmat, C, Q=Q)
     nbytes = ea.expm_action_bytes(B, n, C, itemsize=p0.element_size(), per_lane_t=per_lane_t,
                                   Q=Q, per_lane_catmask=cm is not None and cm.dim() == 2)
-    t_ops = ops / PEAK_OPS["float64" if f64 else "float32"]
+    t_ops = ops / PEAK_OPS["float64"]
     t_bytes = nbytes / HBM_BYTES_PER_S
     rec = {"name": name, "route": "cuda", "source": EA_SOURCE, "replaces": EA_REPLACES,
            "launches": launches, "max_abs_err": max(errs), "ms": k_ms, "plain_ms": p_ms,
@@ -411,12 +411,11 @@ def row_matmul_record(rm, torch, name, args, launches):
 def phase_attrs(cf, ea, torch):
     """Registers, spill bytes and resident blocks per SM of every template
     instance of the correction sweep at s = 28 (misti_correction_sweep_attrs)
-    and of expm_action, one line each; no float32 instance may spill."""
+    and of expm_action (float64 only), one line each; no float32 instance
+    may spill."""
+    for a in ea.kernel_attrs():
+        log("attrs " + json.dumps({"library": "expm_action_float64", **a}))
     for dtype in (torch.float32, torch.float64):
-        for a in ea.kernel_attrs(dtype):
-            log("attrs " + json.dumps({"library": f"expm_action_{str(dtype)[6:]}", **a}))
-            require(dtype == torch.float64 or a["local_bytes"] == 0,
-                    f"expm_action {a}: a float32 instance uses local memory")
         for cpfit in (True, False):
             lib = f"correction_sweep_{str(dtype)[6:]}_{'cpfit' if cpfit else 'ect'}"
             for a in cf.kernel_attrs(dtype, cpfit, KERNEL_S):
@@ -505,7 +504,7 @@ def phase_kernels(cf, rm, ea, torch, dev):
     from misti_tpu_torch.kernels import expm as kexpm
 
     before, n = ea.expm_action.launches, 0
-    for dtype, rtol, atol in ((torch.float64, 1e-6, 1e-9), (torch.float32, 1e-4, 1e-6)):
+    for dtype, rtol, atol in ((torch.float64, 1e-6, 1e-9),):  # built in float64 only
         basis = SpectrumBasis(dev, dtype)
         for B in PER_LANE_B:
             for kname, K, norms, J in (("k2", basis.k2, basis.norms2, basis.jsfs2),
@@ -545,12 +544,22 @@ def phase_kernels(cf, rm, ea, torch, dev):
                     f"lanes bitwise as in the batch")
     moved = ea.expm_action.launches - before
     require(moved == n, f"expm_action launch counter moved {moved}, expected {n}")
-    log(f"expm_action kernel-vs-plain: {n} launches, launch counter +{moved}")
+    basis = SpectrumBasis(dev, torch.float32)
+    x = torch.ones((6, 44), dtype=torch.float32, device=dev) / 44
+    try:
+        ea.expm_action(basis.k2, x[:, :4], basis.norms2, 0.1, x)
+        refused = False
+    except TypeError:
+        refused = True
+    require(refused, "expm_action took float32 operands: it is built in float64 only")
+    require(ea.expm_action.launches == before + n, "a refused expm_action call counted")
+    log(f"expm_action kernel-vs-plain: {n} launches, launch counter +{moved}; float32 refused")
 
 
 def phase_main_path(cf, rm, ea, torch, dev, bench):
     """The bench workload through llh_batch; returns per-kernel records."""
     from misti_tpu_torch import build_likelihood
+    from misti_tpu_torch.config import LLH_DTYPE
 
     batch = MAIN_BATCH
     records = {}
@@ -578,23 +587,24 @@ def phase_main_path(cf, rm, ea, torch, dev, bench):
         if spec.cpfit and spec.correct:
             rm_case = (lik, params, rm_launches, ea_launches)
         evals = batch * reps / dt
+        # the float32 run's parameters, which float64 holds exactly: a run's
+        # dtype rounds only its parameters, so the llh must be the same bits
+        require(out.dtype == LLH_DTYPE, f"{name}: llh in {out.dtype}, not {LLH_DTYPE}")
         lik64 = build_likelihood(spec, device=dev, dtype=torch.float64)
-        out64 = lik64.llh_batch(bench.bench_params(batch, dev, torch.float64))
+        out64 = lik64.llh_batch(params.double())
         fin32, fin64 = torch.isfinite(out), torch.isfinite(out64)
-        require(torch.equal(fin32, fin64), f"{name}: -inf masks differ f32 vs f64")
         require(int(fin64.sum()) > 0, f"{name}: no finite llh")
-        rel = float(((out.double() - out64).abs() / out64.abs())[fin64].max())
-        require(rel <= 1e-5, f"{name}: max rel dllh {rel:.3e} > 1e-5")
-        am32 = int(torch.argmax(torch.where(fin32, out.double(), -math.inf)))
-        am64 = int(torch.argmax(torch.where(fin64, out64, -math.inf)))
-        require(am32 == am64, f"{name}: argmax {am32} (f32) != {am64} (f64)")
+        diff = float((out - out64)[fin64].abs().max())
+        require(torch.equal(out, out64), f"{name}: the float32 run differs from the float64 "
+                                         f"run on the same parameters (max |dllh| {diff:.3e})")
+        am32 = int(torch.argmax(torch.where(fin32, out, -math.inf)))
 
         mi, pu = lik.map_params(params)
         lc, _, _ = lik.correct(mi, pu)
         spec_ms = cuda_ms(lambda: lik.spectrum(lc, mi, pu), 3)
         corr_ms = cuda_ms(lambda: lik.correct(mi, pu), 3)
         line = (f"main path {name}: {evals:.1f} evals/s (batch {batch}, {reps} reps, "
-                f"{dt / reps * 1e3:.2f} ms/llh_batch), f32 vs f64 max rel dllh {rel:.3e}, "
+                f"{dt / reps * 1e3:.2f} ms/llh_batch), the float32 run bitwise the float64 one, "
                 f"finite {int(fin32.sum())}/{batch}, argmax {am32}, correction {corr_ms:.3f} ms, "
                 f"spectrum {spec_ms:.3f} ms, sweep launches {launches}, row_matmul launches "
                 f"{rm_launches} ({rm_launches / reps:g} per llh_batch), expm_action launches "
@@ -657,7 +667,8 @@ def phase_real_inputs(torch, dev):
     require(bool(torch.isfinite(out32)[fin64].all()), "real inputs: f32 not finite where f64 is")
     rel = float(((out32.double() - out64).abs() / out64.abs())[fin64].max())
     log(f"real inputs (sweep fixtures, split {split}, ECT, smoothing): "
-        f"{int(fin64.sum())}/1024 finite, f32 vs f64 max rel dllh {rel:.3e}")
+        f"{int(fin64.sum())}/1024 finite, the parameters' float32 rounding moves the llh by "
+        f"at most {rel:.3e} relative")
 
 
 def phase_log(torch, dev):
@@ -763,7 +774,7 @@ def _hold_to_table(torch, dev, bootstrap, inp, data, name, flags, maxiter, ref, 
     both = converged & conv_ref
     require(both.any(), f"{name}: no cell converged in both runs")
     dllh = np.abs(llh.astype(float) - ref["llh"].astype(float))[both]
-    # Both tables hold float32 llh values, and a float32 llh here is a
+    # Both tables hold the JAX package's float32 llh values, each a
     # difference of terms ~1e5-1e6: the table's own values sit up to ~1
     # nat off the float64 likelihood at its own parameters.  So the two
     # optima are compared in float64 on the card: the llh of this run's

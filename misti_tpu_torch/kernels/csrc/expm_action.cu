@@ -1,6 +1,6 @@
 // The spectrum's per-interval action (E p0, N1 p0) of a CTMC generator, for
 // Hopper (sm_90a): one launch per interval instead of a launch per Taylor
-// term.
+// term.  Float64 only: the likelihood's dtype (config.LLH_DTYPE).
 //
 // For lane b with rates coeffs[b, :] (C of them), the generator is
 // M_b = sum_c coeffs[b, c] * B_c over a constant stacked basis
@@ -23,13 +23,14 @@
 //
 // Design.  A block holds L = 384 / n lanes (8 at n = 44, 48 at n = 8), one
 // thread per (lane, state j), which keeps term_j, ev_j, pv_j and acc_j in
-// registers.  The basis is staged once in shared memory (44 x 176: 30,976 B
-// in float32, 61,952 B in float64) and read from there for every term of
-// every sub-step; a term vector is published through a double buffer in
-// shared memory, one barrier per term.  The block runs to the largest m of
-// its own lanes; a lane past its own m keeps its state.  Bounded by
-// operations (2 C n^2 per lane, sub-step and term); no tensor cores (TF32
-// would cost the spectrum its precision).
+// registers.  The basis is staged once in shared memory (44 x 176: 61,952 B)
+// and read from there for every term of every sub-step; a term vector is
+// published through a double buffer in shared memory, one barrier per term.
+// The block runs to the largest m of its own lanes; a lane past its own m
+// keeps its state.  Per lane, sub-step and term it does C dense (n, n)
+// matvecs, one per basis (the plain loop's order): C times the work of one
+// matvec with the lane's generator, more still over the bases' zeros.  No
+// tensor cores.
 //
 // A lane's value does not depend on its batch, and each value is the one
 // the plain loop gives on the card: the matvec is row_matmul's order (for
@@ -40,41 +41,27 @@
 
 #include <cuda_runtime.h>
 
-#ifndef MISTI_T
-#define MISTI_T float
-#endif
-
 namespace {
 
+using T = double;
 constexpr int kThreads = 384;  // lanes per block = kThreads / n
 constexpr int kMaxDegree = 32;
 
-__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
-__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
-__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
-__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
-__device__ __forceinline__ float div_rn(float a, float b) { return __fdiv_rn(a, b); }
-__device__ __forceinline__ double div_rn(double a, double b) { return __ddiv_rn(a, b); }
-
-template <typename T>
-__device__ __forceinline__ T quiet_nan();
-template <>
-__device__ __forceinline__ float quiet_nan<float>() { return __int_as_float(0x7fc00000); }
-template <>
-__device__ __forceinline__ double quiet_nan<double>() {
-  return __longlong_as_double(0x7ff8000000000000LL);
-}
+__device__ __forceinline__ T add_rn(T a, T b) { return __dadd_rn(a, b); }
+__device__ __forceinline__ T mul_rn(T a, T b) { return __dmul_rn(a, b); }
+__device__ __forceinline__ T div_rn(T a, T b) { return __ddiv_rn(a, b); }
+__device__ __forceinline__ T quiet_nan() { return __longlong_as_double(0x7ff8000000000000LL); }
 
 template <int N>
 constexpr int kLanes = kThreads / N;  // lanes per block
 
-template <typename T, int N, int C>
+template <int N, int C>
 constexpr size_t smem_bytes(int Q) {
   return sizeof(T) * ((size_t)N * C * N + (size_t)N * Q + 2 * (size_t)kLanes<N> * N +
                       (kMaxDegree + 2));
 }
 
-template <typename T, int N, int C>
+template <int N, int C>
 __global__ void __launch_bounds__(kLanes<N> * N)
 expm_action_kernel(const T* __restrict__ kmat, const T* __restrict__ coeffs, long long c_ld,
                    const T* __restrict__ norms, const T* __restrict__ tv, long long t_ld,
@@ -160,8 +147,8 @@ expm_action_kernel(const T* __restrict__ kmat, const T* __restrict__ coeffs, lon
     }
   }
   if (over) {
-    p = quiet_nan<T>();
-    acc = quiet_nan<T>();
+    p = quiet_nan();
+    acc = quiet_nan();
   }
   if (act) {
     ep[lane * N + j] = p;
@@ -181,20 +168,17 @@ expm_action_kernel(const T* __restrict__ kmat, const T* __restrict__ coeffs, lon
   }
 }
 
-template <typename T, int N, int C>
+template <int N, int C>
 int launch(const void* kmat, const void* coeffs, long long c_ld, const void* norms,
            const void* tv, long long t_ld, const void* p0, const void* jsfs, int Q,
            const void* catmask, long long cm_ld, void* ep, void* n1p, void* proj, int B,
            double theta, int cap, int degree, cudaStream_t stream) {
-  auto kern = expm_action_kernel<T, N, C>;
-  const size_t bytes = smem_bytes<T, N, C>(Q);
-  static bool sized = false;  // one attribute call per instance
-  if (!sized) {
-    cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem_bytes<T, N, C>(N));
-    if (e != cudaSuccess) return (int)e;
-    sized = true;
-  }
+  auto kern = expm_action_kernel<N, C>;
+  const size_t bytes = smem_bytes<N, C>(Q);
+  // the attribute holds per device: set it for the current one at every launch
+  const cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_bytes<N, C>(N));
+  if (e != cudaSuccess) return (int)e;
   constexpr int L = kLanes<N>;
   const unsigned blocks = (unsigned)((B + L - 1) / L);
   // torch divides a tensor by a Python scalar as a product with its reciprocal
@@ -208,18 +192,18 @@ int launch(const void* kmat, const void* coeffs, long long c_ld, const void* nor
   return (int)cudaGetLastError();
 }
 
-template <typename T, int N, int C>
+template <int N, int C>
 void attrs_of(int* out) {
   cudaFuncAttributes a;
-  if (cudaFuncGetAttributes(&a, expm_action_kernel<T, N, C>) != cudaSuccess) {
+  if (cudaFuncGetAttributes(&a, expm_action_kernel<N, C>) != cudaSuccess) {
     out[0] = out[1] = out[2] = -1;
     return;
   }
-  cudaFuncSetAttribute(expm_action_kernel<T, N, C>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_bytes<T, N, C>(N));
+  cudaFuncSetAttribute(expm_action_kernel<N, C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)smem_bytes<N, C>(N));
   int blocks = 0;
   cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &blocks, expm_action_kernel<T, N, C>, kLanes<N> * N, smem_bytes<T, N, C>(7));
+      &blocks, expm_action_kernel<N, C>, kLanes<N> * N, smem_bytes<N, C>(7));
   out[0] = a.numRegs;
   out[1] = (int)a.localSizeBytes;
   out[2] = blocks;
@@ -237,16 +221,15 @@ extern "C" int misti_expm_action(const void* kmat, const void* coeffs, long long
                                  const void* p0, const void* jsfs, int Q, const void* catmask,
                                  long long cm_ld, void* ep, void* n1p, void* proj, int B, int n,
                                  int C, double theta, int cap, int degree, void* stream) {
-  using T = MISTI_T;
   if (B < 1 || degree < 1 || degree > kMaxDegree || cap < 1 || !(theta > 0) ||
       (jsfs == nullptr) != (proj == nullptr) || Q < 0 || Q > n || (jsfs == nullptr && Q != 0))
     return (int)cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
   if (n == 44 && C == 4)
-    return launch<T, 44, 4>(kmat, coeffs, c_ld, norms, tv, t_ld, p0, jsfs, Q, catmask, cm_ld,
+    return launch<44, 4>(kmat, coeffs, c_ld, norms, tv, t_ld, p0, jsfs, Q, catmask, cm_ld,
                             ep, n1p, proj, B, theta, cap, degree, st);
   if (n == 8 && C == 1)
-    return launch<T, 8, 1>(kmat, coeffs, c_ld, norms, tv, t_ld, p0, jsfs, Q, catmask, cm_ld, ep,
+    return launch<8, 1>(kmat, coeffs, c_ld, norms, tv, t_ld, p0, jsfs, Q, catmask, cm_ld, ep,
                            n1p, proj, B, theta, cap, degree, st);
   return (int)cudaErrorInvalidValue;
 }
@@ -254,8 +237,7 @@ extern "C" int misti_expm_action(const void* kmat, const void* coeffs, long long
 // Per instance ((44, 4), then (8, 1)): registers per thread, local (spill)
 // bytes per thread, resident blocks per SM with a 7-category projection.
 extern "C" int misti_expm_action_attrs(int* out) {
-  using T = MISTI_T;
-  attrs_of<T, 44, 4>(out);
-  attrs_of<T, 8, 1>(out + 3);
+  attrs_of<44, 4>(out);
+  attrs_of<8, 1>(out + 3);
   return (int)cudaGetLastError();
 }

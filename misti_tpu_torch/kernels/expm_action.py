@@ -3,6 +3,7 @@
 ``expm_action(kmat, coeffs, basis_norms, t, p0, ...)`` launches
 csrc/expm_action.cu: every lane's Taylor sub-steps of one interval, and
 optionally the projection of N1 p0 onto the JSFS categories, in one launch.
+It is built in float64 only, the likelihood's dtype (config.LLH_DTYPE).
 Its plain version is kernels/expm.py `expm_action_pair_plain` (the loop of
 `row_matmul` products and torch ops the kernel replaces); `expm_action_pair`
 there takes this kernel for CUDA tensors and the plain version for CPU ones.
@@ -20,31 +21,28 @@ from pathlib import Path
 
 import torch
 
-from .correction_fused import _DTYPES, BUILD_DIR, compile_libs, stale
+from .correction_fused import BUILD_DIR, compile_libs, stale
 
 _CSRC = Path(__file__).resolve().parent / "csrc" / "expm_action.cu"
+_LIB_PATH = BUILD_DIR / "expm_action_f64.so"
 _LIBS: dict = {}
 _LIB_LOCK = threading.Lock()
 SHAPES = ((44, 4), (8, 1))  # (n, C): the pre-split and the post-split basis
 MAX_DEGREE = 32
 
 
-def _lib_path(dtype: torch.dtype) -> Path:
-    return BUILD_DIR / f"expm_action_{_DTYPES[dtype][1]}.so"
-
-
 def build_jobs(force: bool = False) -> list:
-    """The nvcc jobs of this kernel's libraries (one per dtype) for
-    `correction_fused.compile_libs`; without ``force`` only stale ones."""
-    jobs = [(_lib_path(d), _CSRC, d, False, ()) for d in _DTYPES]
+    """The nvcc job of this kernel's library for
+    `correction_fused.compile_libs`; without ``force`` only if stale."""
+    jobs = [(_LIB_PATH, _CSRC, torch.float64, False, ())]
     return jobs if force else stale(jobs)
 
 
-def _load(dtype: torch.dtype):
+def _load():
     with _LIB_LOCK:
-        if dtype not in _LIBS:
-            compile_libs([j for j in build_jobs() if j[2] == dtype])
-            lib = ctypes.CDLL(str(_lib_path(dtype)))
+        if "lib" not in _LIBS:
+            compile_libs(build_jobs())
+            lib = ctypes.CDLL(str(_LIB_PATH))
             fn = lib.misti_expm_action
             P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
             fn.argtypes = [P, P, L, P, P, L, P, P, I, P, L, P, P, P, I, I, I,
@@ -52,15 +50,15 @@ def _load(dtype: torch.dtype):
             fn.restype = I
             lib.misti_expm_action_attrs.argtypes = [P]
             lib.misti_expm_action_attrs.restype = I
-            _LIBS[dtype] = lib
-        return _LIBS[dtype]
+            _LIBS["lib"] = lib
+        return _LIBS["lib"]
 
 
-def kernel_attrs(dtype: torch.dtype) -> list:
+def kernel_attrs() -> list:
     """Per (n, C) instance: registers per thread, local (spill) bytes per
     thread and resident blocks per SM.  Needs a card."""
     buf = (ctypes.c_int * 6)()
-    err = _load(dtype).misti_expm_action_attrs(ctypes.addressof(buf))
+    err = _load().misti_expm_action_attrs(ctypes.addressof(buf))
     if err != 0:
         raise RuntimeError(f"misti_expm_action_attrs failed: CUDA error {err}")
     return [dict(n=n, C=C, registers=buf[3 * i], local_bytes=buf[3 * i + 1],
@@ -94,8 +92,8 @@ def expm_action(kmat: torch.Tensor, coeffs: torch.Tensor, basis_norms: torch.Ten
     dev, dt = p0.device, p0.dtype
     if dev.type != "cuda":
         raise ValueError(f"expm_action runs on a CUDA device, not {dev}")
-    if dt not in _DTYPES:
-        raise TypeError(f"expm_action takes float32 or float64, not {dt}")
+    if dt != torch.float64:
+        raise TypeError(f"expm_action takes float64 (the likelihood's dtype), not {dt}")
     if not torch.is_tensor(t):
         t = torch.tensor([float(t)], dtype=dt, device=dev)
     t = t.reshape(-1)
@@ -134,7 +132,7 @@ def expm_action(kmat: torch.Tensor, coeffs: torch.Tensor, basis_norms: torch.Ten
     proj = None if jsfs is None else torch.empty((B, Q), dtype=dt, device=dev)
     if B == 0:
         return ep, n1p, proj
-    fn = _load(dt).misti_expm_action
+    fn = _load().misti_expm_action
     ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -151,14 +149,23 @@ def expm_action(kmat: torch.Tensor, coeffs: torch.Tensor, basis_norms: torch.Ten
 expm_action.launches = 0
 
 
-def expm_action_ops(m: torch.Tensor, n: int, C: int, *, degree: int = 20, Q: int = 0) -> float:
-    """Arithmetic operations of one call for per-lane sub-step counts ``m``
-    (B,): per lane, sub-step and term a (C*n, n) matvec (2 C n^2), its
-    weights (2 C n), the term's scale, the two sums and the pv term's scale
-    (4 n); per sub-step the acc update (2 n); the projection (2 n Q + Q)."""
+def expm_action_ops(m: torch.Tensor, kmat: torch.Tensor, C: int, *, degree: int = 20,
+                    Q: int = 0) -> float:
+    """Arithmetic operations one call needs for per-lane sub-step counts
+    ``m`` (B,) over the basis ``kmat`` (n, C*n): per lane, the step's scaled
+    rates (C) and the generator sum_c cs_c B_c from the bases' nonzeros (a
+    multiply-add each); per lane, sub-step and term a matvec with that
+    generator over its nonzeros, the term's scale, the two sums and the pv
+    term's scale (4 n); per sub-step the acc update (2 n); the projection
+    (2 n Q + Q).  The kernel does more: to keep the plain loop's order it
+    multiplies by each basis in turn, C dense (n, n) matvecs per term."""
+    n = kmat.shape[0]
+    nnz_bases = int(torch.count_nonzero(kmat))
+    nnz_gen = int(torch.count_nonzero(kmat.reshape(n, C, n).abs().sum(1)))
     steps = float(m.double().sum())
-    per_step = degree * n * (2 * C * n + 2 * C + 4) + 2 * n
-    return steps * per_step + int(m.numel()) * (2 * n * Q + Q)
+    per_step = degree * (2 * nnz_gen + 4 * n) + 2 * n
+    per_lane = C + 2 * nnz_bases + 2 * n * Q + Q
+    return steps * per_step + int(m.numel()) * per_lane
 
 
 def expm_action_bytes(B: int, n: int, C: int, *, itemsize: int, per_lane_t: bool,

@@ -293,7 +293,8 @@ def run(args) -> dict:
 
 def write(entries: dict, path: str) -> None:
     doc = {"what": "the 16-scenario sweep matrix (tests/fixtures/matrix/matrix.json) through "
-                   "misti_tpu_torch.cli.sweep on one card, float32; scripts/torch_matrix_card.py",
+                   "misti_tpu_torch.cli.sweep on one card, float32 parameters and a float64 "
+                   "likelihood; scripts/torch_matrix_card.py",
            "entries": dict(sorted(entries.items()))}
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     with open(path, "w") as f:

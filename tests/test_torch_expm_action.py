@@ -6,8 +6,9 @@ On the CPU: the plain version against the loop it was before the kernel
 both of the spectrum's instances and in both dtypes, with per-lane interval
 lengths that hold zeros, ragged sub-step counts and runaway lanes; its
 folded JSFS projection against `row_matmul(N1 p0, jsfs)`; the wrapper
-taking the plain version for CPU tensors.  The CUDA kernel itself runs only
-on a card: those tests skip here.
+taking the plain version for CPU tensors.  The CUDA kernel itself, built
+in float64 only (the likelihood's dtype), runs only on a card: those tests
+skip here.
 """
 
 import numpy as np
@@ -126,12 +127,19 @@ def test_wrapper_takes_the_plain_version_on_the_cpu():
 
 
 def test_work_meter_counts_each_lanes_own_substeps():
-    """Operations from the per-lane sub-step counts (not the batch's
-    largest), bytes from the operands once."""
+    """Operations the function needs from the per-lane sub-step counts (not
+    the batch's largest): per lane the generator from the bases' nonzeros,
+    per sub-step and term a matvec over the generator's nonzeros; bytes from
+    the operands once."""
+    basis = SpectrumBasis(torch.device("cpu"), torch.float64)
+    assert int(torch.count_nonzero(basis.k2)) == 264 and int(torch.count_nonzero(basis.k1)) == 18
     m = torch.tensor([1.0, 3.0, 2.0])
-    per_step = 20 * 44 * (2 * 4 * 44 + 2 * 4 + 4) + 2 * 44
-    assert kea.expm_action_ops(m, 44, 4, Q=7) == 6 * per_step + 3 * (2 * 44 * 7 + 7)
-    assert kea.expm_action_ops(m, 8, 1) == 6 * (20 * 8 * (2 * 8 + 2 + 4) + 16)
+    per_step = 20 * (2 * 196 + 4 * 44) + 2 * 44  # the generator's union of nonzeros: 196
+    per_lane = 4 + 2 * 264 + 2 * 44 * 7 + 7
+    assert kea.expm_action_ops(m, basis.k2, 4, Q=7) == 6 * per_step + 3 * per_lane
+    assert kea.expm_action_ops(m, basis.k1, 1) == 6 * (20 * (2 * 18 + 4 * 8) + 16) + 3 * 37
+    dense = torch.ones(44, 176, dtype=torch.float64)  # no zeros: 2 n^2 per term
+    assert kea.expm_action_ops(m[:1], dense, 4) == 20 * (2 * 44 * 44 + 4 * 44) + 88 + 4 + 2 * 7744
     words = 44 * 176 + 3 * 4 + 4 + 3 + 3 * 44 + 44 * 7 + 3 * 7 + 2 * 3 * 44 + 3 * 7
     assert kea.expm_action_bytes(3, 44, 4, itemsize=8, per_lane_t=True, Q=7,
                                  per_lane_catmask=True) == words * 8
@@ -142,16 +150,15 @@ def test_work_meter_counts_each_lanes_own_substeps():
 SUB_WIDTHS = (1, 6, 42, 960)
 
 
-@pytest.mark.parametrize("dtype", DTYPES, ids=["f64", "f32"])
 @pytest.mark.parametrize("inst", INSTANCES, ids=[i[0] for i in INSTANCES])
-def test_kernel_matches_plain_on_card(cuda, inst, dtype):
-    """One launch against the plain loop: f32 rtol 1e-4 / atol 1e-6, f64
-    1e-6 / 1e-9, equal NaN masks, and bitwise (the kernel keeps the loop's
-    order and roundings, whose matvec is the row_matmul kernel on the card);
-    the first 1 / 6 / 42 / 960 lanes alone bitwise as in the batch; the
-    launch counter."""
-    rtol, atol = (1e-6, 1e-9) if dtype == torch.float64 else (1e-4, 1e-6)
-    kmat, coeffs, norms, t, p0, jsfs, cm = _inputs(inst, 4851, dtype, cuda)
+def test_kernel_matches_plain_on_card(cuda, inst):
+    """One float64 launch against the plain loop: rtol 1e-6 / atol 1e-9,
+    equal NaN masks, and bitwise (the kernel keeps the loop's order and
+    roundings, whose matvec is the row_matmul kernel on the card); the first
+    1 / 6 / 42 / 960 lanes alone bitwise as in the batch; the launch
+    counter."""
+    rtol, atol = 1e-6, 1e-9
+    kmat, coeffs, norms, t, p0, jsfs, cm = _inputs(inst, 4851, torch.float64, cuda)
     before = kea.expm_action.launches
     got = kexpm.expm_action_pair(kmat, coeffs, norms, t, p0, jsfs=jsfs, catmask=cm)
     torch.cuda.synchronize()
@@ -186,6 +193,9 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
     kmat, coeffs, norms, t, p0, jsfs, cm = _inputs(INSTANCES[0], 8, torch.float64, cuda)
     with pytest.raises(TypeError):
         kea.expm_action(kmat, coeffs, norms, t, p0.float())
+    f32 = _inputs(INSTANCES[0], 8, torch.float32, cuda)
+    with pytest.raises(TypeError):  # built in float64 only
+        kexpm.expm_action_pair(*f32[:5])
     with pytest.raises(ValueError):
         kea.expm_action(kmat, coeffs[:, :3], norms, t, p0)
     with pytest.raises(ValueError):

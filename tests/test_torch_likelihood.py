@@ -17,6 +17,7 @@ import torch
 from misti_tpu.engine.likelihood import build_likelihood as jax_build_likelihood
 from misti_tpu.engine.spec import build_spec as jax_build_spec
 from misti_tpu_torch import build_likelihood, build_spec, params_from_jax
+from misti_tpu_torch.config import LLH_DTYPE
 from test_likelihood import CASES
 
 README_LLH = -5.6330938966336905
@@ -136,13 +137,15 @@ def test_float32_log_within_4_ulp():
 
 
 def test_float32_cpu_run_tracks_float64():
+    """A run's dtype rounds only its parameters: on parameters float32 holds
+    exactly, the float32 run's llh is the float64 run's, bit for bit, and
+    comes back in LLH_DTYPE."""
     lik32 = build_likelihood(_band_lik().spec, device="cpu", dtype=torch.float32)
     lik64 = _band_lik()
-    batch = np.linspace(0.05, 1.2, 6)[:, None]
+    batch = np.linspace(0.05, 1.2, 6, dtype=np.float32).astype(np.float64)[:, None]
     out32 = lik32.llh_batch(batch)
-    assert out32.dtype == torch.float64  # float32 parameters, float64 likelihood (LLH_DTYPE)
-    np.testing.assert_allclose(out32.double().numpy(), lik64.llh_batch(batch).numpy(),
-                               rtol=1e-5)
+    assert out32.dtype == LLH_DTYPE
+    assert torch.equal(out32, lik64.llh_batch(batch))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
@@ -150,16 +153,17 @@ def test_optimised_pulse_lane_does_not_depend_on_its_batch(dtype):
     """correct_pulse with its pulse optimised: each lane's llh is bitwise the
     same alone, in sub-batches and in the whole batch (the per-lane pulse
     operator is applied as a product and a last-axis sum, as the card needs),
-    and the float32 run tracks the float64 one."""
+    and the float32 run is the float64 one bit for bit on parameters that
+    float32 holds exactly."""
     args, kw = _spec_args(_case("correct_pulse"))
     args[5] = [[2, 4, 0.15, 1]]
     lik = build_likelihood(build_spec(*args, **kw), device="cpu", dtype=dtype)
-    batch = np.linspace(0.0, 0.7, 37)[:, None]  # finite llh up to ~0.75 here
+    # finite llh up to ~0.75 here; float32 holds these rates exactly
+    batch = np.linspace(0.0, 0.7, 37, dtype=np.float32).astype(np.float64)[:, None]
     full = lik.llh_batch(batch)
-    assert full.dtype == torch.float64 and bool(torch.isfinite(full).all())
+    assert full.dtype == LLH_DTYPE and bool(torch.isfinite(full).all())
     for sel in (slice(0, 1), slice(5, 11), slice(3, 37, 5), slice(0, 36)):
         assert torch.equal(lik.llh_batch(batch[sel]), full[sel])
     if dtype == torch.float32:
         lik64 = build_likelihood(build_spec(*args, **kw), device="cpu")
-        np.testing.assert_allclose(full.double().numpy(), lik64.llh_batch(batch).numpy(),
-                                   rtol=1e-5)
+        assert torch.equal(full, lik64.llh_batch(batch))
