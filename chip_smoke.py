@@ -6,13 +6,15 @@
 Phases, each fatal on failure:
   1. build the CUDA kernels (one nvcc per library, all started together) and
      print each template instance's registers, spill bytes and resident
-     blocks per SM (an ``attrs`` line each; a float32 spill fails);
-  2. each kernel variant against its plain torch version on the card, in
-     float64 and float32, at s = 28 intervals and 512 lanes, and
-     ``row_matmul`` at each of the spectrum's products and ``expm_action``
-     (float64 only) at both of the spectrum's bases (per-lane interval
-     lengths with zeros, runaway lanes), with every prefix of SUB_WIDTHS
-     lanes bitwise what it is in the whole batch;
+     blocks per SM (an ``attrs`` line each; a spill in a float32 instance of
+     the correction sweep or in ``expm_action`` fails);
+  2. each variant of the correction sweep against its plain torch version
+     on the card, in float64 and float32, at s = 28 intervals and 512
+     lanes; ``row_matmul`` (float64 only) at each of the spectrum's products
+     and ``expm_action`` (float64 only) at both of the spectrum's bases
+     (per-lane interval lengths with zeros, runaway lanes, a NaN in a p0 at
+     t == 0), with every prefix of SUB_WIDTHS lanes bitwise what it is in
+     the whole batch, and float32 operands refused;
   3. the main path at full size -- the bench workload (64 intervals, split
      28, one band, 4096 candidates) through ``build_likelihood(...).llh_batch``
      for cpfit, ECT and trueEPS -- with launch counts, timings, and the
@@ -54,9 +56,15 @@ Phases, each fatal on failure:
      table and the kernels at the two-band scenario's first-stage width.
 Every path requires each of its kernels (the correction sweep, ``row_matmul``,
 ``expm_action``) to have launched, and prints their launches per objective
-call.  Prints each phase's wall, a ``kernels`` JSON line, the card's name and
-power limit, and as the last line ``{"ok": true, "device": {...}}``.  Exits
-nonzero without a card.
+call.  Each kernel record carries ``ms`` (CUDA events around back-to-back
+calls), ``device_ms`` (the kernels' own device time per call, from
+torch.profiler, or from CUDA events behind a spin kernel on both sides of
+the record where the profiler's launch count fails) and ``host_us`` (the
+wrapper's host time per call, no synchronise), and the library call's
+``library_ms``, ``library_device_ms`` and ``library_host_us`` where there
+is one.  Prints each phase's wall, a
+``kernels`` JSON line, the card's name and power limit, and as the last line
+``{"ok": true, "device": {...}}``.  Exits nonzero without a card.
 """
 
 from __future__ import annotations
@@ -93,6 +101,8 @@ EA_SOURCE = "misti_tpu_torch/kernels/csrc/expm_action.cu"
 EA_REPLACES = "misti_tpu/kernels/expm.py:235"
 # widths at which a lane's value must be bitwise what it is in the whole batch
 SUB_WIDTHS = (1, 6, 42, 960)
+# one-call profiles that count a library call's kernel launches per call
+SINGLE_PROFILES = 5
 # per-lane table cases of phase 2: the sweep path's s_max and its narrowest
 # and widest kernel batches (odd widths: not multiples of a block's 8 lanes)
 PER_LANE_S, PER_LANE_B = 27, (6, 4851)
@@ -187,6 +197,113 @@ def cuda_ms(fn, reps: int = 1) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _kernels_seen(fn, calls: int) -> dict:
+    """{CUDA kernel name: (launches, device us)} that torch.profiler saw
+    over ``calls`` calls of ``fn``."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: (e.count, e.self_device_time_total) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA}
+
+
+def host_us(fn, reps: int) -> float:
+    """Host time per call of ``fn`` after one warm-up, with the host clock
+    over ``reps`` enqueues and no synchronise: the median of 5 rounds (the
+    host's times spread)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    rounds = []
+    for _ in range(5):
+        t = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        rounds.append((time.perf_counter() - t) / reps * 1e6)
+        torch.cuda.synchronize()
+    return float(np.median(rounds))
+
+
+def profiled_ms(fn, reps: int, one_kernel: bool):
+    """(device ms per call or None, what the profiler saw) of ``fn`` from
+    torch.profiler's kernel events over ``reps`` calls.  On the H100 hosts
+    this ran on, the profiler missed some kernels (from 1 in 10 to 8 in
+    10, the most after phase 8's ranks), so each kernel's launches per call
+    are counted apart from its time: 1 where the call launches
+    ``one_kernel`` (a hand kernel's wrapper), else for each kernel name the
+    most seen in any of SINGLE_PROFILES profiles of one call.  The time is
+    then, summed over the names, the mean time of the launches of that
+    name seen over the ``reps`` calls times its launches per call.  None
+    where it saw under half of the launches so expected, missed a name, or
+    saw more of a name than expected (a count from one call that fell
+    short)."""
+    seen = _kernels_seen(fn, reps)
+    if one_kernel:
+        per_call = {k: 1 for k in seen}
+        ok = len(seen) <= 1
+    else:
+        per_call = {}
+        for _ in range(SINGLE_PROFILES):
+            for k, (c, _) in _kernels_seen(fn, 1).items():
+                per_call[k] = max(per_call.get(k, 0), c)
+        ok = all(seen.get(k, (0, 0))[0] <= c * reps for k, c in per_call.items())
+    got = sum(c for c, _ in seen.values())
+    want = sum(per_call.values()) * reps if per_call else reps
+    how = f"saw {got} of {want} launches over {reps} calls"
+    if not (ok and set(seen) == set(per_call) and 2 * got >= want):
+        return None, how
+    return sum(us / c * per_call[k] for k, (c, us) in seen.items()) / 1e3, how
+
+
+def events_ms(fn, reps: int, enqueue_us: float) -> float:
+    """Device ms per call of ``fn`` from CUDA events around ``reps`` calls
+    queued behind a spin kernel, so that the device runs them back to back
+    (the gaps between its kernels included)."""
+    import torch
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(2e6 + 4e3 * enqueue_us * reps))  # ~1 ms plus twice the enqueue time
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def timed_record(rec, kernel, reps: int, library=None, library_reps: int = 1):
+    """``rec`` with the kernel's ``device_ms``, ``host_us`` and
+    ``device_ms_by`` and, where a library call computes the same function,
+    that call's ``library_device_ms``, ``library_host_us`` and
+    ``library_device_ms_by``.  ``device_ms`` is `profiled_ms` (the kernel:
+    one launch per call) on both sides, or `events_ms` on both sides where
+    the profiler's count fails on either, so that one record never compares
+    two methods.  (``ms`` times back-to-back calls with events and no queue
+    ahead: for a kernel of a few microseconds that is the wrapper's host
+    time.)"""
+    sides = [("", kernel, reps, True)]
+    if library is not None:
+        sides.append(("library_", library, library_reps, False))
+    hosts = [host_us(fn, r) for _, fn, r, _ in sides]
+    prof = [profiled_ms(fn, r, one) for _, fn, r, one in sides]
+    by_events = any(ms is None for ms, _ in prof)
+    for (pre, fn, r, _), h, (ms, how) in zip(sides, hosts, prof):
+        if by_events:
+            ms, how = events_ms(fn, r, h), f"events ({how})"
+        else:
+            how = f"profiler ({how})"
+        rec[pre + "device_ms"], rec[pre + "host_us"], rec[pre + "device_ms_by"] = ms, h, how
+    if library is None:
+        rec["library_device_ms"] = rec["library_host_us"] = rec["library_device_ms_by"] = None
+    return rec
 
 
 def tolerance(dtype):
@@ -302,18 +419,20 @@ def capture_expm_action(fn, n: int = 44, pick: int = 24):
 
 def expm_action_record(ea, torch, name, captured, launches):
     """``expm_action`` on one instance of a path: held against its plain
-    version (the loop it replaces, whose matvec is the row_matmul kernel:
-    rtol 1e-6 / atol 1e-9 in float64, NaN masks equal; whether bitwise is
-    logged), each prefix of SUB_WIDTHS lanes bitwise equal to its rows of
-    the whole batch, timed beside that loop (the old route) and one library
-    call (``torch.linalg.matrix_exp`` of the (B, 2n, 2n) block generators
+    version (the same sparse series in torch ops: rtol 1e-6 / atol 1e-9 in
+    float64, NaN masks equal; whether bitwise is logged), each prefix of
+    SUB_WIDTHS lanes bitwise equal to its rows of the whole batch, timed
+    beside the plain version and one library call
+    (``torch.linalg.matrix_exp`` of the (B, 2n, 2n) block generators
     [[M t, t I], [0, 0]], which hold e^{Mt} and N1), and held to its bound
     (`expm_action_ops`, the work the function needs, over the FP64 rate,
     `expm_action_bytes` over HBM)."""
     from misti_tpu_torch.kernels import expm as kexpm
 
+    from misti_tpu_torch.engine.likelihood import SpectrumBasis
+
     a, kw = captured
-    kmat, coeffs, norms, t, p0 = a
+    basis, coeffs, norms, t, p0 = a
     require(p0.dtype == torch.float64, f"{name}: expm_action runs in float64, not {p0.dtype}")
     rtol, atol = 1e-6, 1e-9
     B, n = p0.shape
@@ -331,7 +450,7 @@ def expm_action_record(ea, torch, name, captured, launches):
     for w in SUB_WIDTHS:
         if w < B:
             kw_w = dict(kw, catmask=cm[:w]) if cm is not None and cm.dim() == 2 else kw
-            part = ea.expm_action(kmat, coeffs[:w], norms, t[:w] if per_lane_t else t, p0[:w],
+            part = ea.expm_action(basis, coeffs[:w], norms, t[:w] if per_lane_t else t, p0[:w],
                                   **kw_w)
             require(all(torch.equal(x.nan_to_num(), y[:w].nan_to_num())
                         for x, y in zip(part, got) if x is not None),
@@ -339,14 +458,17 @@ def expm_action_record(ea, torch, name, captured, launches):
     k_ms = cuda_ms(run, 20)
     p_ms = cuda_ms(plain, 3)
     tt = (t if per_lane_t else t.reshape(-1)[:1].expand(B)).to(p0.dtype)
+    dense = SpectrumBasis(p0.device, p0.dtype)
+    kmat = dense.k2 if n == dense.k2.shape[0] else dense.k1
     gen = torch.einsum("bc,kcm->bkm", coeffs * tt[:, None], kmat.view(n, C, n))
     aug = torch.zeros((B, 2 * n, 2 * n), dtype=p0.dtype, device=p0.device)
     aug[:, :n, :n] = gen
     aug[:, n:, :n] = tt[:, None, None] * torch.eye(n, dtype=p0.dtype, device=p0.device)
-    lib_ms = cuda_ms(lambda: torch.linalg.matrix_exp(aug), 3)
+    library = lambda: torch.linalg.matrix_exp(aug)  # noqa: E731
+    lib_ms = cuda_ms(library, 3)
     m, _ = kexpm.substep_counts(coeffs, norms, t)
-    ops = ea.expm_action_ops(m, kmat, C, Q=Q)
-    nbytes = ea.expm_action_bytes(B, n, C, itemsize=p0.element_size(), per_lane_t=per_lane_t,
+    ops = ea.expm_action_ops(basis, coeffs, norms, t, Q=Q)
+    nbytes = ea.expm_action_bytes(B, basis, itemsize=p0.element_size(), per_lane_t=per_lane_t,
                                   Q=Q, per_lane_catmask=cm is not None and cm.dim() == 2)
     t_ops = ops / PEAK_OPS["float64"]
     t_bytes = nbytes / HBM_BYTES_PER_S
@@ -355,27 +477,31 @@ def expm_action_record(ea, torch, name, captured, launches):
            "bound_ms": max(t_ops, t_bytes) * 1e3,
            "bound_by": "operations" if t_ops >= t_bytes else "bytes", "library_ms": lib_ms}
     rec["share_of_bound"] = rec["bound_ms"] / k_ms
+    timed_record(rec, run, 20, library, 3)
     log(f"{name} at B = {B}, n = {n}, C = {C}, {str(p0.dtype)[6:]}, sub-steps per lane "
         f"{int(m.min())}-{int(m.max())} (sum {int(m.sum())}), t == 0 on "
         f"{int((t == 0).sum()) if per_lane_t else int(bool((t == 0).all())) * B} lanes: "
-        f"{k_ms:.4f} ms, the plain loop (old route) {p_ms:.4f} ms, library {lib_ms:.4f} ms, "
+        f"{k_ms:.4f} ms (device {rec['device_ms']:.4f} ms by {rec['device_ms_by']}, host "
+        f"{rec['host_us']:.1f} us), the plain version {p_ms:.4f} ms, library {lib_ms:.4f} ms "
+        f"(device {rec['library_device_ms']:.4f} ms by {rec['library_device_ms_by']}, host "
+        f"{rec['library_host_us']:.1f} us), "
         f"bound {rec['bound_ms']:.5f} ms ({rec['bound_by']}; {ops:.3e} ops, {nbytes} bytes), "
-        f"{rec['share_of_bound']:.1%} of bound, max|d| {max(errs):.3e}, bitwise equal to the "
-        f"plain loop {bitwise}, {launches} launches on the path; widths "
+        f"{rec['share_of_bound']:.1%} of bound ({rec['bound_ms'] / rec['device_ms']:.1%} of "
+        f"device_ms), max|d| {max(errs):.3e}, bitwise equal to the plain version {bitwise}, "
+        f"{launches} launches on the path; widths "
         f"{[w for w in SUB_WIDTHS if w < B]} bitwise as in the batch")
     return rec
 
 
 def row_matmul_record(rm, torch, name, args, launches):
-    """``row_matmul`` on one instance of a path: held against its plain
-    version (rtol 1e-4 / atol 1e-6 in float32, 1e-6 / 1e-9 in float64), each
-    prefix of SUB_WIDTHS lanes bitwise equal to its rows of the whole batch,
-    timed beside the plain version and one library call (``torch.matmul``
-    without weights, ``torch.einsum`` with them) and held to its bound."""
+    """``row_matmul`` (float64) on one instance of a path: held against its
+    plain version (rtol 1e-6 / atol 1e-9), each prefix of SUB_WIDTHS lanes
+    bitwise equal to its rows of the whole batch, timed beside the plain
+    version and one library call (``torch.matmul`` without weights,
+    ``torch.einsum`` with them) and held to its bound."""
     v, K, cs = args
-    f64 = v.dtype == torch.float64
     got, want = rm.row_matmul(v, K, cs), rm.row_matmul_plain(v, K, cs)
-    err = check_close(name, got, want, *((1e-6, 1e-9) if f64 else (1e-4, 1e-6)))
+    err = check_close(name, got, want, 1e-6, 1e-9)
     B, n = v.shape
     C = 1 if cs is None else cs.shape[1]
     m = K.shape[1] // C
@@ -384,37 +510,47 @@ def row_matmul_record(rm, torch, name, args, launches):
             part = rm.row_matmul(v[:w], K, None if cs is None else cs[:w])
             require(torch.equal(part, got[:w]), f"{name}: the first {w} lanes differ from "
                                                 f"their rows of the {B}-lane batch")
-    k_ms = cuda_ms(lambda: rm.row_matmul(v, K, cs), 50)
+    kernel = lambda: rm.row_matmul(v, K, cs)  # noqa: E731
+    k_ms = cuda_ms(kernel, 50)
     p_ms = cuda_ms(lambda: rm.row_matmul_plain(v, K, cs), 50)
     if cs is None:
-        lib_ms = cuda_ms(lambda: torch.matmul(v, K), 50)
+        library = lambda: torch.matmul(v, K)  # noqa: E731
     else:
         k3 = K.view(n, C, m)
-        lib_ms = cuda_ms(lambda: torch.einsum("bk,kcm,bc->bm", v, k3, cs), 50)
+        library = lambda: torch.einsum("bk,kcm,bc->bm", v, k3, cs)  # noqa: E731
+    lib_ms = cuda_ms(library, 50)
     nbytes = (B * n + n * C * m + (0 if cs is None else B * C) + B * m) * v.element_size()
     ops = 2 * B * m * C * n + (0 if cs is None else 2 * B * m * C)
-    t_ops = ops / PEAK_OPS["float64" if f64 else "float32"]
+    t_ops = ops / PEAK_OPS["float64"]
     t_bytes = nbytes / HBM_BYTES_PER_S
     rec = {"name": name, "route": "cuda", "source": RM_SOURCE, "replaces": RM_REPLACES,
            "launches": launches, "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
            "bound_ms": max(t_ops, t_bytes) * 1e3,
            "bound_by": "operations" if t_ops >= t_bytes else "bytes", "library_ms": lib_ms}
     rec["share_of_bound"] = rec["bound_ms"] / k_ms
-    log(f"{name} at B = {B}, n = {n}, C = {C}, m = {m}, {str(v.dtype)[6:]}: {k_ms:.4f} ms, plain "
-        f"{p_ms:.4f} ms, library {lib_ms:.4f} ms, bound {rec['bound_ms']:.5f} ms "
+    timed_record(rec, kernel, 50, library, 50)
+    log(f"{name} at B = {B}, n = {n}, C = {C}, m = {m}, {str(v.dtype)[6:]}: {k_ms:.4f} ms "
+        f"(device {rec['device_ms']:.4f} ms by {rec['device_ms_by']}, host "
+        f"{rec['host_us']:.1f} us), plain "
+        f"{p_ms:.4f} ms, library {lib_ms:.4f} ms (device {rec['library_device_ms']:.4f} ms by "
+        f"{rec['library_device_ms_by']}, host {rec['library_host_us']:.1f} us), bound "
+        f"{rec['bound_ms']:.5f} ms "
         f"({rec['bound_by']}; {ops:.3e} ops, {nbytes} bytes), {rec['share_of_bound']:.1%} of "
         f"bound, max|d| {err:.3e}, {launches} launches on the path; widths "
         f"{[w for w in SUB_WIDTHS if w < B]} bitwise as in the batch")
     return rec
 
 
-def phase_attrs(cf, ea, torch):
+def phase_attrs(cf, rm, ea, torch):
     """Registers, spill bytes and resident blocks per SM of every template
-    instance of the correction sweep at s = 28 (misti_correction_sweep_attrs)
-    and of expm_action (float64 only), one line each; no float32 instance
-    may spill."""
+    instance of the correction sweep at s = 28 (misti_correction_sweep_attrs),
+    of expm_action and of row_matmul (float64 only), one line each; no
+    float32 instance of the sweep and no instance of expm_action may spill."""
     for a in ea.kernel_attrs():
         log("attrs " + json.dumps({"library": "expm_action_float64", **a}))
+        require(a["local_bytes"] == 0, f"expm_action {a}: uses local memory")
+    log("attrs " + json.dumps({"library": "row_matmul_float64", "n": 44, "m": 44,
+                               **rm.kernel_attrs()}))
     for dtype in (torch.float32, torch.float64):
         for cpfit in (True, False):
             lib = f"correction_sweep_{str(dtype)[6:]}_{'cpfit' if cpfit else 'ect'}"
@@ -472,7 +608,7 @@ def phase_kernels(cf, rm, ea, torch, dev):
     from misti_tpu_torch.engine.likelihood import SpectrumBasis
 
     before, n = rm.row_matmul.launches, 0
-    for dtype, rtol, atol in ((torch.float64, 1e-6, 1e-9), (torch.float32, 1e-4, 1e-6)):
+    for dtype, rtol, atol in ((torch.float64, 1e-6, 1e-9),):  # built in float64 only
         basis = SpectrumBasis(dev, dtype)
         for B in PER_LANE_B:
             gen = torch.Generator().manual_seed(SEED + B)
@@ -499,7 +635,16 @@ def phase_kernels(cf, rm, ea, torch, dev):
                     f"prefixes of {[w for w in SUB_WIDTHS if w < B]} lanes bitwise as in the batch")
     moved = rm.row_matmul.launches - before
     require(moved == n, f"row_matmul launch counter moved {moved}, expected {n}")
-    log(f"row_matmul kernel-vs-plain: {n} launches, launch counter +{moved}")
+    basis = SpectrumBasis(dev, torch.float32)
+    x = torch.ones((6, 44), dtype=torch.float32, device=dev)
+    try:
+        rm.row_matmul(x, basis.collapseT)
+        refused = False
+    except TypeError:
+        refused = True
+    require(refused, "row_matmul took float32 operands: it is built in float64 only")
+    require(rm.row_matmul.launches == before + n, "a refused row_matmul call counted")
+    log(f"row_matmul kernel-vs-plain: {n} launches, launch counter +{moved}; float32 refused")
 
     from misti_tpu_torch.kernels import expm as kexpm
 
@@ -507,18 +652,20 @@ def phase_kernels(cf, rm, ea, torch, dev):
     for dtype, rtol, atol in ((torch.float64, 1e-6, 1e-9),):  # built in float64 only
         basis = SpectrumBasis(dev, dtype)
         for B in PER_LANE_B:
-            for kname, K, norms, J in (("k2", basis.k2, basis.norms2, basis.jsfs2),
-                                       ("k1", basis.k1, basis.norms1, basis.jsfs1)):
+            for kname, K, norms, J in (("k2", basis.sp2, basis.norms2, basis.jsfs2),
+                                       ("k1", basis.sp1, basis.norms1, basis.jsfs1)):
                 # rates over three decades (ragged sub-step counts), every 5th
-                # lane t == 0, a lane past the sub-step cap, a lane with a NaN rate
+                # lane t == 0, a lane past the sub-step cap, a lane with a NaN
+                # rate, a lane with t == 0 and a NaN in p0 (it runs the series)
                 gen = np.random.default_rng(SEED + B)
                 C = norms.shape[0]
                 coeffs = gen.uniform(0.0, 1.0, (B, C)) * 10.0 ** gen.uniform(-1, 2, (B, 1))
                 t = gen.uniform(0.01, 0.5, B)
                 t[::5] = 0.0
                 coeffs[3], coeffs[min(7, B - 1), 0] = 1e6, np.nan
-                p0 = gen.uniform(0.0, 1.0, (B, K.shape[0]))
+                p0 = gen.uniform(0.0, 1.0, (B, K.n))
                 p0 /= p0.sum(-1, keepdims=True)
+                p0[min(5, B - 1), 1] = np.nan
                 cm = (gen.uniform(0.0, 1.0, (B, 7)) > 0.3).astype(float)
                 coeffs, t, p0, cm = (torch.tensor(x, dtype=dtype, device=dev)
                                      for x in (coeffs, t, p0, cm))
@@ -539,15 +686,15 @@ def phase_kernels(cf, rm, ea, torch, dev):
                                     for x, y in zip(part, got)),
                                 f"{tag}: the first {w} lanes differ from the batch's")
                 log(f"kernel-vs-plain {tag}: max|d| {max(errs):.3e} (rtol {rtol:g} atol "
-                    f"{atol:g}), NaN lanes {int(got[0][:, 0].isnan().sum())}, bitwise equal to "
-                    f"the plain loop {bitwise}; prefixes of {[w for w in SUB_WIDTHS if w < B]} "
-                    f"lanes bitwise as in the batch")
+                    f"{atol:g}), NaN lanes {int(got[0].isnan().any(-1).sum())}, bitwise equal "
+                    f"to the plain version {bitwise}; prefixes of "
+                    f"{[w for w in SUB_WIDTHS if w < B]} lanes bitwise as in the batch")
     moved = ea.expm_action.launches - before
     require(moved == n, f"expm_action launch counter moved {moved}, expected {n}")
     basis = SpectrumBasis(dev, torch.float32)
     x = torch.ones((6, 44), dtype=torch.float32, device=dev) / 44
     try:
-        ea.expm_action(basis.k2, x[:, :4], basis.norms2, 0.1, x)
+        ea.expm_action(basis.sp2, x[:, :4], basis.norms2, 0.1, x)
         refused = False
     except TypeError:
         refused = True
@@ -632,7 +779,9 @@ def phase_main_path(cf, rm, ea, torch, dev, bench):
                 "library_ms": None,
             }
             records[name]["share_of_bound"] = records[name]["bound_ms"] / k_ms
-            line += (f"; kernel {k_ms:.3f} ms, plain {p_ms:.1f} ms, bound "
+            timed_record(records[name], lambda: cf.correction_sweep(inp, **opts), 5)
+            line += (f"; kernel {k_ms:.3f} ms (device {records[name]['device_ms']:.4f} ms, host "
+                     f"{records[name]['host_us']:.1f} us), plain {p_ms:.1f} ms, bound "
                      f"{records[name]['bound_ms']:.5f} ms ({ops:.3e} ops, {nbytes} bytes), "
                      f"work {json.dumps(work)}")
         log(line)
@@ -706,7 +855,10 @@ def _sweep_kernel_record(cf, torch, fs, points, st_idx, launches, name):
            "plain_ms": p_ms, "bound_ms": max(t_ops, t_bytes) * 1e3,
            "bound_by": "operations" if t_ops >= t_bytes else "bytes", "library_ms": None}
     rec["share_of_bound"] = rec["bound_ms"] / k_ms
-    log(f"{name} at s = {s}, B = {B}: {k_ms:.4f} ms, plain {p_ms:.1f} ms, "
+    timed_record(rec, lambda: cf.correction_sweep(inp, **opts), 10)
+    log(f"{name} at s = {s}, B = {B}: {k_ms:.4f} ms (device {rec['device_ms']:.4f} ms by "
+        f"{rec['device_ms_by']}, host "
+        f"{rec['host_us']:.1f} us), plain {p_ms:.1f} ms, "
         f"bound {rec['bound_ms']:.5f} ms ({rec['bound_by']}; {ops:.3e} ops, {nbytes} bytes), "
         f"{rec['share_of_bound']:.1%} of bound, lanes with lc off by > 1e-6 rel "
         f"{lanes_off(got, want)}/{B}, max|dlc| {err:.3e}, work {json.dumps(work)}")
@@ -1132,6 +1284,7 @@ def phase_single_fit(cf, rm, ea, torch, dev):
                    "bound_ms": max(t_ops, t_bytes) * 1e3,
                    "bound_by": "operations" if t_ops >= t_bytes else "bytes", "library_ms": None}
             rec["share_of_bound"] = rec["bound_ms"] / k_ms
+            timed_record(rec, lambda: cf.correction_sweep(inp, **opts), 20)
             records.append(rec)
             if name == "cpfit":
                 call = lambda: lik.llh_flags_batch(points)  # noqa: E731
@@ -1148,7 +1301,8 @@ def phase_single_fit(cf, rm, ea, torch, dev):
                 f"evals/s, {per_call} kernel launches per objective call ({n + 5} lanes), of "
                 f"them row_matmul {rm_launches / calls:.2f} and expm_action "
                 f"{ea_launches / calls:.2f}; "
-                f"correction kernel at s = {s}, B = {B}, float64, shared tables: {k_ms:.4f} ms, "
+                f"correction kernel at s = {s}, B = {B}, float64, shared tables: {k_ms:.4f} ms "
+                f"(device {rec['device_ms']:.4f} ms, host {rec['host_us']:.1f} us), "
                 f"plain {p_ms:.1f} ms, bound {rec['bound_ms']:.5f} ms ({rec['bound_by']}; "
                 f"{ops:.3e} ops, {nbytes} bytes), {rec['share_of_bound']:.1%} of bound, "
                 f"max|d| {err:.3e}")
@@ -1397,7 +1551,7 @@ def main() -> int:
         log(f"phase {name}: {time.perf_counter() - t:.1f} s wall")
         return out
 
-    phase("1 attrs", phase_attrs, cf, ea, torch)
+    phase("1 attrs", phase_attrs, cf, rm, ea, torch)
     phase("2 kernels", phase_kernels, cf, rm, ea, torch, dev)
     kernels = phase("3 main path", phase_main_path, cf, rm, ea, torch, dev, bench)
     phase("4 real inputs", phase_real_inputs, torch, dev)

@@ -98,7 +98,7 @@ def profile(lik, params, reps: int = 10) -> None:
         "correct": ms(lambda: lik.correct(mi, pu)),
         "spectrum": ms(lambda: lik.spectrum(lc, mi, pu)),
         f"expm_action_pair (44 states, interval {t})": ms(
-            lambda: expm_action_pair(basis.k2, coeffs, basis.norms2, float(lik.spec.times[t]),
+            lambda: expm_action_pair(basis.sp2, coeffs, basis.norms2, float(lik.spec.times[t]),
                                      p0)),
     }
     if lik.spec.correct and s:

@@ -31,7 +31,7 @@ import torch
 from ..config import LLH_DTYPE, resolve_device, resolve_dtype
 from ..kernels.correction import fit_single_pop
 from ..kernels.correction_fused import fused_correction
-from ..kernels.expm import expm_action_pair
+from ..kernels.expm import expm_action_pair, sparse_basis
 from ..kernels.row_matmul import row_matmul
 from ..model import statespace as ss
 from .spec import ModelSpec
@@ -148,6 +148,9 @@ class SpectrumBasis:
             [b2.coal[0], b2.coal[1], b2.migr[0], b2.migr[1]])).sum(axis=1).max(axis=1))
         self.k1 = tens(b1.coal.T)  # (8, 8)
         self.norms1 = tens(np.abs(b1.coal).sum(axis=0).max(keepdims=True))
+        # the stacked bases' nonzeros, as the spectrum's series reads them
+        self.sp2 = sparse_basis(self.k2, 4)
+        self.sp1 = sparse_basis(self.k1, 1)
 
 
 def _select(mask, a, b):
@@ -174,9 +177,10 @@ def jafs_spectrum(basis: SpectrumBasis, lc, mi, pu, T_pre, T_post, catmask,
     that may be nonzero (P(0) is the identity, so the others are skipped).
 
     Only the action of E and N1 on the carried state is needed, so each
-    interval is Taylor sub-stepping against the stacked basis, with N1 p0's
-    projection onto the categories folded in (kernels/expm.py
-    `expm_action_pair`: one kernel launch per interval on the card).  Every
+    interval is Taylor sub-stepping with each lane's generator over the
+    bases' nonzeros, with N1 p0's projection onto the categories folded in
+    (kernels/expm.py `expm_action_pair`: one kernel launch per interval on
+    the card).  Every
     other product with a constant matrix is a `row_matmul`, the per-lane
     pulse operators are applied as a product and a last-axis sum, and the
     interval terms are added in order, so a lane's spectrum does not depend
@@ -198,7 +202,7 @@ def jafs_spectrum(basis: SpectrumBasis, lc, mi, pu, T_pre, T_post, catmask,
                 # a product and a last-axis sum, as in smooth_rates
                 p0 = (ss.pulse_operator(pu[:, t, pop], pop, basis.b2) * p0[:, None, :]).sum(-1)
         cm = catmask[t] if catmask.dim() == 2 else catmask[:, t]
-        p0, _, jafs_t = expm_action_pair(basis.k2, coeffs_pre[:, t], basis.norms2, T_pre[:, t],
+        p0, _, jafs_t = expm_action_pair(basis.sp2, coeffs_pre[:, t], basis.norms2, T_pre[:, t],
                                          p0, jsfs=basis.jsfs2, catmask=cm)
         jafs_pre.append(jafs_t)
 
@@ -209,7 +213,7 @@ def jafs_spectrum(basis: SpectrumBasis, lc, mi, pu, T_pre, T_post, catmask,
 
     jafs_post = []
     for t in range(n_post):
-        p0, _, jafs_t = expm_action_pair(basis.k1, coeffs_post[:, t], basis.norms1,
+        p0, _, jafs_t = expm_action_pair(basis.sp1, coeffs_post[:, t], basis.norms1,
                                          T_post[:, t], p0, jsfs=basis.jsfs1)
         jafs_post.append(jafs_t)
 

@@ -2,14 +2,16 @@
 plain version.
 
 ``row_matmul(v, K, cs)`` = sum_c cs[:, c] * (v @ K)[:, c*m:(c+1)*m]: the
-spectrum's Taylor sub-step matvec against the stacked basis (``cs`` the
-lane's scaled rates, kernels/expm.py `expm_action_pair`) and, without
-``cs``, its products with the JSFS projections and the ancient-sample and
-collapse maps (engine/likelihood.py `jafs_spectrum`).
+spectrum's products with its constant matrices (engine/likelihood.py
+`jafs_spectrum`: the collapse map, the last interval's JSFS projection, the
+ancient-sample map; kernels/expm.py `expm_action_pair_plain`: N1 p0's
+projection) and, with ``cs``, a weighted product with the stacked basis
+(the width probe, probe.py).
 
 * `row_matmul` is the wrapper: CPU tensors take `row_matmul_plain`, CUDA
-  tensors launch the hand-written kernel (csrc/row_matmul.cu) or raise.
-  ``row_matmul.launches`` counts kernel launches.
+  tensors launch the hand-written kernel (csrc/row_matmul.cu, float64
+  only: the likelihood's dtype) or raise.  ``row_matmul.launches`` counts
+  kernel launches.
 * `row_matmul_plain` is the same sums in torch ops.
 
 On the card the kernel keeps a lane's value independent of the batch it is
@@ -25,11 +27,13 @@ from pathlib import Path
 
 import torch
 
-from .correction_fused import _DTYPES, BUILD_DIR, compile_libs, stale
+from .correction_fused import BUILD_DIR, compile_libs, stale
 
 _CSRC = Path(__file__).resolve().parent / "csrc" / "row_matmul.cu"
+_LIB_PATH = BUILD_DIR / "row_matmul_f64.so"
 _LIBS: dict = {}
 _LIB_LOCK = threading.Lock()
+_F64 = torch.float64
 
 
 def row_matmul_plain(v: torch.Tensor, K: torch.Tensor, cs: torch.Tensor | None = None):
@@ -40,59 +44,72 @@ def row_matmul_plain(v: torch.Tensor, K: torch.Tensor, cs: torch.Tensor | None =
     return (cs[..., None] * y.reshape(y.shape[:-1] + (cs.shape[-1], -1))).sum(-2)
 
 
-def _lib_path(dtype: torch.dtype) -> Path:
-    return BUILD_DIR / f"row_matmul_{_DTYPES[dtype][1]}.so"
-
-
 def build_jobs(force: bool = False) -> list:
-    """The nvcc jobs of this kernel's libraries (one per dtype) for
-    `correction_fused.compile_libs`; without ``force`` only stale ones."""
-    jobs = [(_lib_path(d), _CSRC, d, False, ()) for d in _DTYPES]
+    """The nvcc job of this kernel's library (float64) for
+    `correction_fused.compile_libs`; without ``force`` only if stale."""
+    jobs = [(_LIB_PATH, _CSRC, torch.float64, False, ())]
     return jobs if force else stale(jobs)
 
 
-def _load(dtype: torch.dtype):
+def _load():
     with _LIB_LOCK:
-        if dtype not in _LIBS:
-            compile_libs([j for j in build_jobs() if j[2] == dtype])
-            fn = ctypes.CDLL(str(_lib_path(dtype))).misti_row_matmul
-            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        if "fn" not in _LIBS:
+            compile_libs(build_jobs())
+            lib = ctypes.CDLL(str(_LIB_PATH))
+            fn = lib.misti_row_matmul
+            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
-            _LIBS[dtype] = fn
-        return _LIBS[dtype]
+            lib.misti_row_matmul_attrs.argtypes = [ctypes.c_void_p]
+            lib.misti_row_matmul_attrs.restype = ctypes.c_int
+            _LIBS["lib"], _LIBS["fn"] = lib, fn
+        return _LIBS["fn"]
+
+
+def kernel_attrs() -> dict:
+    """Registers per thread, local (spill) bytes per thread and resident
+    blocks per SM at the path's largest product.  Needs a card."""
+    buf = (ctypes.c_int * 3)()
+    _load()
+    err = _LIBS["lib"].misti_row_matmul_attrs(ctypes.addressof(buf))
+    if err != 0:
+        raise RuntimeError(f"misti_row_matmul_attrs failed: CUDA error {err}")
+    return dict(registers=buf[0], local_bytes=buf[1], blocks_per_sm=buf[2])
 
 
 def row_matmul(v: torch.Tensor, K: torch.Tensor, cs: torch.Tensor | None = None):
     """``row_matmul_plain`` on the CPU; the kernel on a CUDA tensor (raises
-    on anything it does not take)."""
-    if v.device.type == "cpu":
-        return row_matmul_plain(v, K, cs)
-    if v.device.type != "cuda":
+    on anything it does not take).  ``K`` is a constant table: it must be
+    contiguous and is not copied.  The launch path is kept lean (a few
+    attribute reads, one allocation, one ctypes call): on the path it is
+    launched thrice per objective call and its device time is microseconds."""
+    if not v.is_cuda:
+        if v.is_cpu:
+            return row_matmul_plain(v, K, cs)
         raise ValueError(f"unsupported device {v.device}")
-    if v.dtype not in _DTYPES:
-        raise TypeError(f"row_matmul takes float32 or float64, not {v.dtype}")
-    ops = (v, K) if cs is None else (v, K, cs)
-    if any(t.dtype != v.dtype or t.device != v.device for t in ops):
-        raise TypeError("row_matmul operands must share dtype and device")
-    if v.dim() != 2 or K.dim() != 2 or v.shape[1] != K.shape[0]:
-        raise ValueError(f"expected v (B, n) and K (n, C*m), got {tuple(v.shape)}, "
-                         f"{tuple(K.shape)}")
-    C = 1 if cs is None else cs.shape[-1]
-    if cs is not None and (cs.dim() != 2 or cs.shape[0] != v.shape[0]
-                           or K.shape[1] % C):
-        raise ValueError(f"expected cs (B, C) with C dividing {K.shape[1]}, got "
-                         f"{tuple(cs.shape)}")
-    v, K = v.contiguous(), K.contiguous()
-    cs = None if cs is None else cs.contiguous()
-    B, n, m = v.shape[0], v.shape[1], K.shape[1] // C
-    out = torch.empty((B, m), dtype=v.dtype, device=v.device)
+    if v.dtype is not _F64 or K.dtype is not _F64 or (cs is not None and cs.dtype is not _F64):
+        raise TypeError("row_matmul takes float64 operands (the likelihood's dtype)")
+    dev = v.get_device()
+    if K.get_device() != dev or (cs is not None and cs.get_device() != dev):
+        raise TypeError("row_matmul operands must share a device")
+    if v.dim() != 2 or K.dim() != 2 or v.shape[1] != K.shape[0] or not K.is_contiguous():
+        raise ValueError(f"expected v (B, n) and a contiguous K (n, C*m), got "
+                         f"{tuple(v.shape)}, {tuple(K.shape)}")
+    B, n = v.shape
+    C = 1
+    if cs is not None:
+        C = cs.shape[-1]
+        if cs.dim() != 2 or cs.shape[0] != B or K.shape[1] % C:
+            raise ValueError(f"expected cs (B, C) with C dividing {K.shape[1]}, got "
+                             f"{tuple(cs.shape)}")
+        cs = cs.contiguous()
+    m = K.shape[1] // C
+    v = v.contiguous()
+    out = v.new_empty((B, m))
     if B == 0:
         return out
-    fn = _load(v.dtype)
-    with torch.cuda.device(v.device):
-        stream = torch.cuda.current_stream(v.device).cuda_stream
-        err = fn(v.data_ptr(), K.data_ptr(), None if cs is None else cs.data_ptr(),
-                 out.data_ptr(), B, n, m, C, stream)
+    fn = _LIBS.get("fn") or _load()  # no lock once loaded
+    err = fn(v.data_ptr(), K.data_ptr(), None if cs is None else cs.data_ptr(), out.data_ptr(),
+             B, n, m, C, dev, torch._C._cuda_getCurrentRawStream(dev))
     if err != 0:
         raise RuntimeError(f"row_matmul kernel launch failed: CUDA error {err}")
     row_matmul.launches += 1

@@ -1,6 +1,7 @@
-"""A probe of the north-star sweep on one card.
+"""Probes of the port on one card.
 
     python -m misti_tpu_torch.probe width [--cell C] [--out FILE]
+    python -m misti_tpu_torch.probe host [--out FILE]
 
 The north-star sweep is upstream's test.bs command on the repo's fixtures
 (tests/fixtures/sweep*.psmc + sweep.jsfs, ``--splits 20 27 -bs 100 -mi 1 4
@@ -21,6 +22,14 @@ in.  It takes the sweep's first Nelder-Mead iteration (808 cells x
   inputs, over the whole batch and over sub-batches of 6, 42 and 960 lanes,
   and says which give a lane another value in a narrower batch.
 
+``host`` splits the host time per call of the spectrum's two hand kernels'
+wrappers (`row_matmul` at the collapse map, `expm_action` at the 44-state
+basis with the projection; the sweep's 4848 lanes, per-lane interval
+lengths) into its steps, each timed alone with the host clock over 200
+calls and no synchronise: the whole wrapper, the ctypes call that launches
+the kernel (arguments made beforehand), the output allocations and the
+stream lookup; and the same for ``torch.matmul`` of the same product.
+
 Prints JSON lines and the card's name and power limit; ``--out`` also
 writes them to a file.  Needs a card.
 """
@@ -34,6 +43,7 @@ import json
 import os
 import subprocess
 import sys
+import time
 
 import numpy as np
 import torch
@@ -295,6 +305,77 @@ def width_main(args, emit):
               "max_abs_dllh": max(moved)})
 
 
+def _host_us(fn, reps: int) -> float:
+    """Host time per call of ``fn`` over ``reps`` calls, no synchronise
+    (after a warm-up; the device has drained before)."""
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    us = (time.perf_counter() - t0) / reps * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+HOST_LANES = 4848  # the sweep's first iteration: 808 cells x 6 trial points
+HOST_REPS = 200
+
+
+def host_main(args, emit):
+    from .kernels import expm_action as ea
+    from .kernels import row_matmul as rm
+
+    dev, B, reps = torch.device(args.device), HOST_LANES, HOST_REPS
+    idx = dev.index or 0
+    basis = lk.SpectrumBasis(dev, LLH_DTYPE)
+    rng = np.random.default_rng(0)
+
+    def tens(a):
+        return torch.as_tensor(a, dtype=LLH_DTYPE, device=dev)
+
+    stream = lambda: torch._C._cuda_getCurrentRawStream(idx)  # noqa: E731
+
+    # row_matmul at the collapse map
+    v, K = tens(rng.uniform(0.0, 1.0, (B, 44))), basis.collapseT
+    out = v.new_empty((B, 8))
+    fn = rm._load()
+    a = (v.data_ptr(), K.data_ptr(), None, out.data_ptr(), B, 44, 8, 1, idx, stream())
+    steps = {"wrapper": _host_us(lambda: rm.row_matmul(v, K), reps),
+             "launch": _host_us(lambda: fn(*a), reps),
+             "alloc": _host_us(lambda: v.new_empty((B, 8)), reps),
+             "stream": _host_us(stream, reps)}
+    steps["checks_and_rest"] = steps["wrapper"] - steps["launch"] - steps["alloc"] - steps["stream"]
+    lib = {"torch.matmul": _host_us(lambda: torch.matmul(v, K), reps),
+           "torch.empty": _host_us(lambda: torch.empty((B, 8), dtype=LLH_DTYPE, device=dev),
+                                   reps)}
+    emit({"probe": "host", "kernel": "row_matmul", "instance": "collapse (B, 44) @ (44, 8)",
+          "lanes": B, "reps": reps, "us": steps, "library_us": lib})
+
+    # expm_action at the 44-state basis, one interval of a per-lane table
+    sp, norms, jsfs = basis.sp2, basis.norms2, basis.jsfs2
+    coeffs = tens(rng.uniform(0.0, 2.0, (B, 3, 4)))[:, 1]
+    t = tens(rng.uniform(0.0, 0.05, (B, 3)))[:, 1]
+    cm = tens(rng.uniform(0.0, 1.0, (B, 7)) > 0.3)
+    p0 = torch.softmax(tens(rng.uniform(0.0, 1.0, (B, 44))), -1)
+    ep, n1p, proj = (p0.new_empty((B, 44)), p0.new_empty((B, 44)), p0.new_empty((B, 7)))
+    fn = ea._load()
+    a = (sp.src.data_ptr(), sp.slot.data_ptr(), sp.vals.data_ptr(), sp.nnz, sp.L,
+         coeffs.data_ptr(), coeffs.stride(0), norms.data_ptr(), t.data_ptr(), t.stride(0),
+         p0.data_ptr(), jsfs.data_ptr(), 7, cm.data_ptr(), cm.stride(0), ep.data_ptr(),
+         n1p.data_ptr(), proj.data_ptr(), B, 44, 4, 2.0, 1024, 20, idx, stream())
+    steps = {"wrapper": _host_us(lambda: ea.expm_action(sp, coeffs, norms, t, p0, jsfs=jsfs,
+                                                        catmask=cm), reps),
+             "launch": _host_us(lambda: fn(*a), reps),
+             "alloc": _host_us(lambda: (torch.empty_like(p0), torch.empty_like(p0),
+                                        p0.new_empty((B, 7))), reps),
+             "stream": _host_us(stream, reps)}
+    steps["checks_and_rest"] = steps["wrapper"] - steps["launch"] - steps["alloc"] - steps["stream"]
+    emit({"probe": "host", "kernel": "expm_action", "instance": "k2 (n = 44, C = 4) with the "
+          "projection, per-lane t", "lanes": B, "reps": reps, "us": steps})
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -302,6 +383,9 @@ def main(argv=None) -> int:
     w.add_argument("--cell", type=int, default=404)
     w.add_argument("--out", default="")
     w.add_argument("--device", default="cuda", help="cuda (default) or cpu (a dry run)")
+    h = sub.add_parser("host")
+    h.add_argument("--out", default="")
+    h.set_defaults(device="cuda")
     args = p.parse_args(argv)
     if args.device == "cuda" and not torch.cuda.is_available():
         print("probe: torch.cuda.is_available() is False", file=sys.stderr)
@@ -315,7 +399,7 @@ def main(argv=None) -> int:
         print(s, flush=True)
 
     with contextlib.redirect_stderr(io.StringIO()):
-        width_main(args, emit)
+        (width_main if args.cmd == "width" else host_main)(args, emit)
     if args.out:
         with open(args.out, "w") as f:
             f.write("\n".join(lines) + "\n")

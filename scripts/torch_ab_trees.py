@@ -14,7 +14,8 @@ measures on the north-star command (tests/fixtures/sweep*.psmc + sweep.jsfs,
   float32 run, cpfit and ECT: the wall of a 4-iteration fit less that of a
   1-iteration fit, over 3;
 * one objective call of that width under torch.profiler (cpfit, ECT): CUDA
-  kernel launches, their device time and its share of the call's wall;
+  kernel launches, their device time and its share of the call's wall, and
+  the five kernels with the most device time (ms, launches);
 * the north-star single fit at split 24, row 0, cpfit (float64, as the
   single-fit CLI runs it): wall, objective calls, ms per call, CUDA kernel
   launches per call (torch.profiler on one call of its 6 lanes), and each
@@ -83,8 +84,11 @@ def measure(device: str, rows: int) -> dict:
             sync()
         ev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
         busy = sum(e.self_device_time_total for e in ev) / 1e3  # ms
+        top = sorted(ev, key=lambda e: e.self_device_time_total, reverse=True)[:5]
         return {"wall_ms": wall * 1e3, "launches": sum(e.count for e in ev),
-                "device_ms": busy, "busy_share": busy / (wall * 1e3)}
+                "device_ms": busy, "busy_share": busy / (wall * 1e3),
+                "top_kernels_ms": {e.key[:80]: [e.self_device_time_total / 1e3, e.count]
+                                   for e in top}}
 
     n_cells = len(SPLITS) * data.shape[0]
     st = torch.arange(len(SPLITS), device=dev).repeat_interleave(data.shape[0])

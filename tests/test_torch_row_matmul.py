@@ -2,8 +2,10 @@
 
 On the CPU: the plain version against the JAX package's matvec of
 ``expm_action_pair`` and its other basis products, each lane's value the
-same in every batch, and the wrapper taking the plain version for CPU
-tensors.  The CUDA kernel itself runs only on a card: those tests skip here.
+same in every batch, the wrapper taking the plain version for CPU tensors,
+and the spectrum's products with its constant matrices going through it.
+The CUDA kernel itself (float64 only) runs only on a card: those tests skip
+here.
 """
 
 import jax.numpy as jnp
@@ -63,26 +65,48 @@ def test_cpu_lane_values_do_not_depend_on_the_batch(name, attr, C):
 
 
 def test_expm_action_pair_uses_it():
-    """The spectrum's sub-step matvec goes through row_matmul."""
+    """The spectrum's products with its constant matrices go through
+    row_matmul: the ancient-sample map where the sample enters, the
+    collapse map at the split and the last interval's projection; and the
+    series' projection of N1 p0 (kernels/expm.py) too."""
+    from misti_tpu_torch.engine import likelihood as lk
     from misti_tpu_torch.kernels import expm as kexpm
 
-    seen = []
-    orig = kexpm.row_matmul
-    kexpm.row_matmul = lambda v, K, cs=None: seen.append(K.shape) or orig(v, K, cs)
+    basis = SpectrumBasis(torch.device("cpu"), torch.float64)
+    rng = np.random.default_rng(3)
+    B, s, n_post = 5, 4, 2
+    tens = lambda a: torch.tensor(a, dtype=torch.float64)  # noqa: E731
+    lc = tens(rng.uniform(0.5, 2.0, (B, s + n_post + 1, 2)))
+    mi = tens(rng.uniform(0.0, 0.5, (B, s, 2)))
+    pu = torch.zeros((B, s, 2), dtype=torch.float64)
+    T_pre, T_post = tens(rng.uniform(0.05, 0.2, (1, s))), tens(rng.uniform(0.1, 0.3, (1, n_post)))
+    catmask = torch.ones((s, 7), dtype=torch.float64)
+    sample_at = [True if t == 1 else None for t in range(s)]
+    pulse_site = np.zeros((s, 2), dtype=bool)
+    seen = {"likelihood": [], "expm": []}
+    origs = (lk.row_matmul, kexpm.row_matmul)
+
+    def rec(where, orig):
+        return lambda v, K, cs=None: seen[where].append(tuple(K.shape)) or orig(v, K, cs)
+
+    lk.row_matmul, kexpm.row_matmul = rec("likelihood", origs[0]), rec("expm", origs[1])
     try:
-        v, K, cs = _inputs("k2", 4, 5)
-        kexpm.expm_action_pair(K, cs, SpectrumBasis(torch.device("cpu"), torch.float64).norms2,
-                               0.3, torch.softmax(v, -1))
+        jafs = lk.jafs_spectrum(basis, lc, mi, pu, T_pre, T_post, catmask, sample_at, None,
+                                pulse_site)
     finally:
-        kexpm.row_matmul = orig
-    assert seen and all(s == (44, 176) for s in seen)
+        lk.row_matmul, kexpm.row_matmul = origs
+    assert jafs.shape == (B, 7) and bool(torch.isfinite(jafs).all())
+    assert seen["likelihood"] == [(44, 44), (44, 8), (8, 7)]
+    assert seen["expm"] == [(44, 7)] * s + [(8, 7)] * n_post
 
 
-@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
-def test_kernel_matches_plain_on_card(cuda, dtype):
-    rtol, atol = (1e-6, 1e-9) if dtype == torch.float64 else (1e-4, 1e-6)
+def test_kernel_matches_plain_on_card(cuda):
+    """Float64 (the likelihood's dtype): rtol 1e-6 / atol 1e-9 at every
+    product, the first 1 / 6 / 42 / 960 lanes alone bitwise as in the
+    batch, a batch that fills no whole block (4851 lanes), the counter."""
+    rtol, atol = 1e-6, 1e-9
     for _, attr, C in CASES:
-        v, K, cs = _inputs(attr, C, 4851, dtype, cuda)
+        v, K, cs = _inputs(attr, C, 4851, torch.float64, cuda)
         before = rm.row_matmul.launches
         got = rm.row_matmul(v, K, cs)
         torch.cuda.synchronize()
@@ -97,9 +121,13 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
     v, K, cs = _inputs("k2", 4, 8, torch.float64, cuda)
     with pytest.raises(TypeError):
         rm.row_matmul(v.half(), K, cs)
+    with pytest.raises(TypeError):  # built in float64 only
+        rm.row_matmul(v.float(), K.float(), cs.float())
     with pytest.raises(TypeError):
         rm.row_matmul(v, K.float(), cs)
     with pytest.raises(ValueError):
         rm.row_matmul(v[:, :40], K, cs)
     with pytest.raises(ValueError):
         rm.row_matmul(v, K, cs[:, :3])
+    with pytest.raises(ValueError):  # a constant table is not copied
+        rm.row_matmul(v[:, :8], SpectrumBasis(cuda, torch.float64).k1.T)

@@ -85,8 +85,9 @@ def test_expm_action_pair_matches_jax_ragged_and_runaway():
     m, over = tke.substep_counts(torch.tensor(coeffs, **F64), norms, t)
     assert len(set(m[:4].tolist())) == 4, m  # ragged per-lane sub-step counts
     assert over.tolist() == [False, False, False, False, True]
-    p1, n1p = tke.expm_action_pair(torch.tensor(kmat, **F64), torch.tensor(coeffs, **F64),
-                                   norms, t, torch.tensor(p0, **F64))
+    basis = tke.sparse_basis(torch.tensor(kmat, **F64), coeffs.shape[1])
+    p1, n1p = tke.expm_action_pair(basis, torch.tensor(coeffs, **F64), norms, t,
+                                   torch.tensor(p0, **F64))
     f = jax.jit(jax.vmap(lambda c, p: jke.expm_action_pair(jnp.asarray(kmat), c, norms, t, p)))
     w1, wn = (np.asarray(x) for x in f(jnp.asarray(coeffs), jnp.asarray(p0)))
     np.testing.assert_allclose(p1[:4].numpy(), w1[:4], rtol=1e-12, atol=1e-300)

@@ -144,9 +144,9 @@ def test_expm_action_pair_takes_per_lane_t():
     coeffs = torch.tensor(rng.uniform(0.1, 3.0, (4, 4)))
     p0 = torch.tensor(rng.dirichlet(np.ones(44), 4))
     t = torch.tensor([0.3, 0.0, 1.7, 0.05], dtype=torch.float64)
-    p1, n1 = expm_action_pair(basis.k2, coeffs, basis.norms2, t, p0)
+    p1, n1 = expm_action_pair(basis.sp2, coeffs, basis.norms2, t, p0)
     for i in range(4):
-        q1, m1 = expm_action_pair(basis.k2, coeffs[i:i + 1], basis.norms2, float(t[i]),
+        q1, m1 = expm_action_pair(basis.sp2, coeffs[i:i + 1], basis.norms2, float(t[i]),
                                   p0[i:i + 1])
         assert torch.equal(p1[i], q1[0]) and torch.equal(n1[i], m1[0])
     assert torch.equal(p1[1], p0[1]) and not n1[1].any()
