@@ -6,14 +6,18 @@
 Phases, each fatal on failure:
   1. build the CUDA kernels (one nvcc per library, all started together) and
      print each template instance's registers, spill bytes and resident
-     blocks per SM (an ``attrs`` line each; a spill in a float32 instance of
-     the correction sweep or in ``expm_action`` fails);
+     blocks per SM (an ``attrs`` line each, the post-split fit's two
+     kernels too; a spill in a float32 instance of the correction sweep or
+     in ``expm_action`` fails);
   2. each variant of the correction sweep against its plain torch version
      on the card, in float64 and float32, at s = 28 intervals and 512
      lanes; ``row_matmul`` (float64 only) at each of the spectrum's products
      and ``expm_action`` (float64 only) at both of the spectrum's bases
      (per-lane interval lengths with zeros, runaway lanes, a NaN in a p0 at
-     t == 0), with every prefix of SUB_WIDTHS lanes bitwise what it is in
+     t == 0), and ``post_fit`` (the post-split fit, float64 only) in both
+     residual modes with shared and per-lane tables (T == 0 rows, rates on
+     both sides of the raw-rate guard at 100, x = lam T around 1/4, a NaN
+     lane), with every prefix of SUB_WIDTHS lanes bitwise what it is in
      the whole batch, and float32 operands refused;
   3. the main path at full size -- the bench workload (64 intervals, split
      28, one band, 4096 candidates) through ``build_likelihood(...).llh_batch``
@@ -55,8 +59,12 @@ Phases, each fatal on failure:
      the no-migration scenario's argmax histogram held to the JAX package's
      table and the kernels at the two-band scenario's first-stage width.
 Every path requires each of its kernels (the correction sweep, ``row_matmul``,
-``expm_action``) to have launched, and prints their launches per objective
-call.  Each kernel record carries ``ms`` (CUDA events around back-to-back
+``expm_action``, ``post_fit``) to have launched, the post-split fit exactly
+once per objective call, and prints their launches per objective call;
+phases 3, 6, 7 and 9 hold ``post_fit`` against its plain version on the
+real inputs of one objective call and record that instance (phase 6 also
+prints the CUDA launches of one objective call as torch.profiler sees
+them).  Each kernel record carries ``ms`` (CUDA events around back-to-back
 calls), ``device_ms`` (the kernels' own device time per call, from
 torch.profiler, or from CUDA events behind a spin kernel on both sides of
 the record where the profiler's launch count fails) and ``host_us`` (the
@@ -99,6 +107,10 @@ RM_REPLACES = "misti_tpu/kernels/expm.py:277"
 # while loop of matvecs, no pallas_call): one launch per interval
 EA_SOURCE = "misti_tpu_torch/kernels/csrc/expm_action.cu"
 EA_REPLACES = "misti_tpu/kernels/expm.py:235"
+# post_fit stands for the JAX package's post-split stage (plain XLA inside
+# its compiled likelihood, no pallas_call): one launch per objective call
+PF_SOURCE = "misti_tpu_torch/kernels/csrc/post_fit.cu"
+PF_REPLACES = "misti_tpu/engine/likelihood.py:328"
 # widths at which a lane's value must be bitwise what it is in the whole batch
 SUB_WIDTHS = (1, 6, 42, 960)
 # one-call profiles that count a library call's kernel launches per call
@@ -541,11 +553,134 @@ def row_matmul_record(rm, torch, name, args, launches):
     return rec
 
 
+def post_fit_inputs(torch, dev, B, n, per_lane, seed):
+    """(nc (B, 2), lh_post (L, n, 2), T_post (L, n)), float64, L = B or 1:
+    carries over three nats, a genome far below the other (lane 2), a NaN
+    lane (4, as a failed pre-split sweep leaves one); a T == 0 row
+    mid-table (3) and two at the end, rates straddling 100 (row 5, C1's
+    branch rule: x0 below 100 in some lanes' weights and above in others')
+    and both above (row 6), x = lam T around 1/4 (row 4, the series
+    switch); per lane, each lane's own T == 0 padding past its rows."""
+    rng = np.random.default_rng(seed)
+    L = B if per_lane else 1
+    T = rng.uniform(0.005, 0.6, (L, n))
+    lh = rng.uniform(0.2, 3.0, (L, n, 2)) * 10.0 ** rng.uniform(-0.5, 0.5, (L, n, 1))
+    T[:, 3] = 0.0
+    T[:, -2:] = 0.0
+    lh[:, 5] = [60.0, 180.0]
+    lh[:, 6] = [150.0, 300.0]
+    T[:, 5:7] = 0.01
+    T[:, 4] = 0.25 / lh[:, 4].mean(-1) * rng.uniform(0.9, 1.1, L)
+    if per_lane:
+        for b in range(B):
+            if b % 3:
+                T[b, n - 1 - b % 4:] = 0.0
+    nc = np.stack([-rng.uniform(0.0, 3.0, B), -rng.uniform(0.0, 3.0, B)], -1)
+    nc[2, 1] = -40.0
+    nc[4] = np.nan
+    return tuple(torch.tensor(a, dtype=torch.float64, device=dev) for a in (nc, lh, T))
+
+
+def check_post_fit(pf, lk, torch, name, args, kw):
+    """The post-split fit's kernel against its plain version on one input:
+    rtol 1e-6 / atol 1e-9 with equal NaN masks on lc and the final carry,
+    and each prefix of SUB_WIDTHS lanes bitwise as in the whole batch.
+    Returns (max abs error, max relative error, bitwise, launches made)."""
+    nc, lh, T = args
+    B, per_lane = nc.shape[0], lh.shape[0] > 1
+    got = pf.post_fit(*args, **kw)
+    want = lk.post_split_fit_plain(*args, **kw)
+    errs = [check_close(f"{name} {o}", g, w, 1e-6, 1e-9)
+            for o, g, w in zip(("lc", "nc_fin"), got, want)]
+    rel = 0.0
+    for g, w in zip(got, want):
+        fin = torch.isfinite(w) & (w != 0)
+        if fin.any():
+            rel = max(rel, float(((g - w).abs() / w.abs())[fin].max()))
+    bitwise = all(torch.equal(g.nan_to_num(), w.nan_to_num()) for g, w in zip(got, want))
+    n = 1
+    for k in SUB_WIDTHS:
+        if k < B:
+            part = pf.post_fit(nc[:k], lh[:k] if per_lane else lh, T[:k] if per_lane else T,
+                               **kw)
+            n += 1
+            require(all(torch.equal(x.nan_to_num(), y[:k].nan_to_num())
+                        for x, y in zip(part, got)),
+                    f"{name}: the first {k} lanes differ from their rows of the {B}-lane batch")
+    return max(errs), rel, bitwise, n
+
+
+def capture_post_fit(fn):
+    """Run ``fn()`` and return (args, kwargs) of its first post-split fit
+    (the kernel's wrapper as engine/likelihood.py calls it)."""
+    from misti_tpu_torch.engine import likelihood as lk
+
+    orig, seen = lk.post_fit, []
+
+    def rec(*a, **kw):
+        if not seen:
+            seen.append((a, kw))
+        return orig(*a, **kw)
+
+    lk.post_fit = rec
+    try:
+        fn()
+    finally:
+        lk.post_fit = orig
+    require(seen, "no post-split fit in the call")
+    return seen[0]
+
+
+def post_fit_record(pf, torch, name, captured, launches, calls):
+    """The post-split fit's kernel on one instance of a path: held against
+    its plain version (`check_post_fit`), timed beside it and held to its
+    bound (`post_fit_ops`, the work the function needs, over the FP64 rate;
+    `post_fit_bytes` over HBM).  No single PyTorch call does the bracketed
+    root solves: no library call.  ``launches`` over ``calls`` objective
+    calls must be one per call."""
+    from misti_tpu_torch.engine import likelihood as lk
+
+    require(launches == calls, f"{name}: {launches} post_fit launches for {calls} objective "
+                               f"calls")
+    a, kw = captured
+    nc, lh, T = a
+    B, (L, n) = nc.shape[0], T.shape
+    err, rel, bitwise, _ = check_post_fit(pf, lk, torch, name, a, kw)
+    run = lambda: pf.post_fit(*a, **kw)  # noqa: E731
+    k_ms = cuda_ms(run, 10)
+    p_ms = cuda_ms(lambda: lk.post_split_fit_plain(*a, **kw), 1)
+    ops = pf.post_fit_ops(*a, **kw)
+    nbytes = pf.post_fit_bytes(B, L, n, itemsize=nc.element_size())
+    t_ops, t_bytes = ops / PEAK_OPS["float64"], nbytes / HBM_BYTES_PER_S
+    rec = {"name": name, "route": "cuda", "source": PF_SOURCE, "replaces": PF_REPLACES,
+           "launches": launches, "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+           "bound_ms": max(t_ops, t_bytes) * 1e3,
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes", "library_ms": None,
+           "max_rel_err": rel}
+    rec["share_of_bound"] = rec["bound_ms"] / k_ms
+    timed_record(rec, run, 10)
+    log(f"{name} at B = {B}, n = {n}, {'per-lane' if L > 1 else 'shared'} tables, "
+        f"{'cpfit' if kw['cpfit'] else 'ECT'}, T == 0 rows {int((T == 0).sum())}: {k_ms:.4f} ms "
+        f"(device {rec['device_ms']:.4f} ms by {rec['device_ms_by']}, host "
+        f"{rec['host_us']:.1f} us), the plain version {p_ms:.3f} ms, bound "
+        f"{rec['bound_ms']:.5f} ms ({rec['bound_by']}; {ops:.4e} ops, {nbytes} bytes), "
+        f"{rec['share_of_bound']:.1%} of bound ({rec['bound_ms'] / rec['device_ms']:.1%} of "
+        f"device_ms), max|d| {err:.3e}, max rel d {rel:.3e}, bitwise equal to the plain "
+        f"version {bitwise}, {launches} launches for {calls} objective calls; widths "
+        f"{[k for k in SUB_WIDTHS if k < B]} bitwise as in the batch")
+    return rec
+
+
 def phase_attrs(cf, rm, ea, torch):
     """Registers, spill bytes and resident blocks per SM of every template
     instance of the correction sweep at s = 28 (misti_correction_sweep_attrs),
-    of expm_action and of row_matmul (float64 only), one line each; no
-    float32 instance of the sweep and no instance of expm_action may spill."""
+    of expm_action, of row_matmul (float64 only) and of the post-split fit's
+    two kernels, one line each; no float32 instance of the sweep and no
+    instance of expm_action may spill."""
+    from misti_tpu_torch.kernels import post_fit as pf
+
+    for a in pf.kernel_attrs():
+        log("attrs " + json.dumps({"library": "post_fit_float64", **a}))
     for a in ea.kernel_attrs():
         log("attrs " + json.dumps({"library": "expm_action_float64", **a}))
         require(a["local_bytes"] == 0, f"expm_action {a}: uses local memory")
@@ -702,14 +837,45 @@ def phase_kernels(cf, rm, ea, torch, dev):
     require(ea.expm_action.launches == before + n, "a refused expm_action call counted")
     log(f"expm_action kernel-vs-plain: {n} launches, launch counter +{moved}; float32 refused")
 
+    from misti_tpu_torch.engine import likelihood as lk
+    from misti_tpu_torch.kernels import post_fit as pf
+
+    before, n = pf.post_fit.launches, 0
+    for B in PER_LANE_B:
+        for per_lane, n_post in ((False, 35), (True, 33)):
+            args = post_fit_inputs(torch, dev, B, n_post, per_lane, SEED + B)
+            for cpfit in (False, True):
+                tag = (f"post_fit {'cpfit' if cpfit else 'ect'} B={B} n={n_post} "
+                       f"{'per-lane' if per_lane else 'shared'} float64")
+                err, rel, bitwise, k = check_post_fit(pf, lk, torch, tag, args,
+                                                      dict(cpfit=cpfit))
+                n += k
+                log(f"kernel-vs-plain {tag}: max|d| {err:.3e}, max rel d {rel:.3e} (rtol 1e-6 "
+                    f"atol 1e-9, NaN masks equal), bitwise equal to the plain version "
+                    f"{bitwise}; prefixes of {[w for w in SUB_WIDTHS if w < B]} lanes bitwise "
+                    f"as in the batch")
+    moved = pf.post_fit.launches - before
+    require(moved == n, f"post_fit launch counter moved {moved}, expected {n}")
+    x = post_fit_inputs(torch, dev, 6, 35, False, SEED)
+    try:
+        pf.post_fit(*(a.float() for a in x), cpfit=False)
+        refused = False
+    except TypeError:
+        refused = True
+    require(refused, "post_fit took float32 operands: it is built in float64 only")
+    require(pf.post_fit.launches == before + n, "a refused post_fit call counted")
+    log(f"post_fit kernel-vs-plain: {n} launches, launch counter +{moved}; float32 refused")
+
 
 def phase_main_path(cf, rm, ea, torch, dev, bench):
     """The bench workload through llh_batch; returns per-kernel records."""
     from misti_tpu_torch import build_likelihood
     from misti_tpu_torch.config import LLH_DTYPE
+    from misti_tpu_torch.kernels import post_fit as pf
 
     batch = MAIN_BATCH
     records = {}
+    pf_records = []
     for mode in ("", "ect", "trueeps"):
         name = bench.metric_name(mode)
         spec = bench.bench_spec(mode)
@@ -721,6 +887,7 @@ def phase_main_path(cf, rm, ea, torch, dev, bench):
         cf.correction_sweep.launches = 0
         rm.row_matmul.launches = 0
         ea.expm_action.launches = 0
+        pf.post_fit.launches = 0
         t0 = time.perf_counter()
         for _ in range(reps):
             out = lik.llh_batch(params)
@@ -729,8 +896,15 @@ def phase_main_path(cf, rm, ea, torch, dev, bench):
         launches = cf.correction_sweep.launches
         rm_launches = rm.row_matmul.launches
         ea_launches = ea.expm_action.launches
+        pf_launches = pf.post_fit.launches
         require(rm_launches > 0, f"{name}: row_matmul never launched")
         require(ea_launches > 0, f"{name}: expm_action never launched")
+        require(pf_launches == reps, f"{name}: post_fit launched {pf_launches} times in {reps} "
+                                     f"batches")
+        if mode in ("", "ect"):
+            pf_records.append(post_fit_record(
+                pf, torch, f"post_fit_{'cpfit' if spec.cpfit else 'ect'}_bench",
+                capture_post_fit(lambda: lik.llh_batch(params)), pf_launches, reps))
         if spec.cpfit and spec.correct:
             rm_case = (lik, params, rm_launches, ea_launches)
         evals = batch * reps / dt
@@ -755,7 +929,8 @@ def phase_main_path(cf, rm, ea, torch, dev, bench):
                 f"finite {int(fin32.sum())}/{batch}, argmax {am32}, correction {corr_ms:.3f} ms, "
                 f"spectrum {spec_ms:.3f} ms, sweep launches {launches}, row_matmul launches "
                 f"{rm_launches} ({rm_launches / reps:g} per llh_batch), expm_action launches "
-                f"{ea_launches} ({ea_launches / reps:g} per llh_batch)")
+                f"{ea_launches} ({ea_launches / reps:g} per llh_batch), post_fit launches "
+                f"{pf_launches} (1 per llh_batch)")
         if spec.correct:
             require(launches == reps, f"{name}: sweep kernel launched {launches} times in {reps} batches")
             s = spec.splitT
@@ -790,7 +965,8 @@ def phase_main_path(cf, rm, ea, torch, dev, bench):
     ea_args = capture_expm_action(lambda: lik.llh_batch(params), 44, 14)
     return [records[k] for k in sorted(records)] + [
         row_matmul_record(rm, torch, "row_matmul_collapse_bench", args, rm_launches),
-        expm_action_record(ea, torch, "expm_action_k2_bench", ea_args, ea_launches)]
+        expm_action_record(ea, torch, "expm_action_k2_bench", ea_args, ea_launches),
+        *pf_records]
 
 
 def phase_real_inputs(torch, dev):
@@ -989,6 +1165,7 @@ def phase_sweep(cf, rm, ea, torch, dev):
     from misti_tpu_torch.engine.sweep_fused import build_fused_sweep
     from misti_tpu_torch.io import jsfs as io_jsfs
     from misti_tpu_torch.io import psmc as io_psmc
+    from misti_tpu_torch.kernels import post_fit as pf
 
     fix = os.path.join(HERE, "tests", "fixtures")
     inp = io_psmc.read_psmc(os.path.join(fix, "sweep1.psmc"), os.path.join(fix, "sweep2.psmc"),
@@ -1009,6 +1186,7 @@ def phase_sweep(cf, rm, ea, torch, dev):
         cf.correction_sweep.launches = 0
         rm.row_matmul.launches = 0
         ea.expm_action.launches = 0
+        pf.post_fit.launches = 0
         t = time.perf_counter()
         with contextlib.redirect_stderr(buf):
             res = bootstrap.sweep(inp.times, inp.lambdas, data, SWEEP_SPLITS, SWEEP_MI, (),
@@ -1018,6 +1196,9 @@ def phase_sweep(cf, rm, ea, torch, dev):
         launches = cf.correction_sweep.launches
         rm_launches = rm.row_matmul.launches
         ea_launches = ea.expm_action.launches
+        pf_launches = pf.post_fit.launches
+        require(pf_launches == res.calls,
+                f"sweep {mode}: {pf_launches} post_fit launches for {res.calls} objective calls")
         require(rm_launches > 0, f"sweep {mode}: row_matmul never launched")
         require(ea_launches > 0, f"sweep {mode}: expm_action never launched")
         stages = [ln for ln in buf.getvalue().splitlines() if ln.startswith("# sweep stage")]
@@ -1040,7 +1221,8 @@ def phase_sweep(cf, rm, ea, torch, dev):
             f"{wall:.2f} s wall, {evals / wall:.1f} evals/s, {res.calls} objective calls = "
             f"{launches} kernel launches, {g}, cells with different nfev "
             f"{int((res.nfev != ref['nfev']).sum())}; per objective call: row_matmul "
-            f"{rm_launches / res.calls:.2f}, expm_action {ea_launches / res.calls:.2f} launches")
+            f"{rm_launches / res.calls:.2f}, expm_action {ea_launches / res.calls:.2f}, "
+            f"post_fit {pf_launches / res.calls:.2f} launches")
 
         # one Nelder-Mead iteration at the first stage's width and at the
         # narrowest stage width of this run; the per-lane kernel at the first
@@ -1076,8 +1258,15 @@ def phase_sweep(cf, rm, ea, torch, dev):
                     f"{float((part.double() - full[sel].double()).abs().max()):.3e})")
         log(f"sweep {mode}: the first iteration's lanes alone and in sub-batches of "
             f"{[int(p.numel()) for p in picks]} lanes: bitwise as in the {W * P}-lane batch")
+        call = lambda: fs.llh(st_l, x_l, d_l)  # noqa: E731
+        seen = _kernels_seen(call, 1)
+        log(f"sweep {mode}: one objective call at {W * P} lanes: "
+            f"{sum(c for c, _ in seen.values())} CUDA kernel launches seen by torch.profiler "
+            f"({sum(us for _, us in seen.values()) / 1e3:.3f} ms of device time), of them "
+            f"post_fit 1")
+        records.append(post_fit_record(pf, torch, f"post_fit_{mode}_sweep",
+                                       capture_post_fit(call), pf_launches, res.calls))
         if mode == "cpfit":
-            call = lambda: fs.llh(st_l, x_l, d_l)  # noqa: E731
             records.append(row_matmul_record(rm, torch, "row_matmul_collapse_sweep",
                                              capture_row_matmul(call), rm_launches))
             # pre-split interval 24: lanes of splits 20-24 hold T == 0 there;
@@ -1180,6 +1369,7 @@ def phase_single_fit(cf, rm, ea, torch, dev):
     from misti_tpu_torch.cli import misti, testmodel
     from misti_tpu_torch.io import mi_format
     from misti_tpu_torch.io.units import Units
+    from misti_tpu_torch.kernels import post_fit as pf
 
     fix = os.path.join(HERE, "tests", "fixtures")
     synth = [os.path.join(fix, f) for f in ("synth1.psmc", "synth2.psmc", "synth.jsfs")]
@@ -1190,12 +1380,14 @@ def phase_single_fit(cf, rm, ea, torch, dev):
             Units.reset()
             out_mi = os.path.join(tmp, name + ".mi")
             cf.correction_sweep.launches = 0
+            pf.post_fit.launches = 0
             rc, lines, wall = _run_cli(misti.main, synth + args + ["-o", out_mi])
             launches = cf.correction_sweep.launches
             require(rc == 0, f"{name}: rc {rc}")
             fit = parse_fit_stdout(lines)
-            require(launches == fit["nit"] + 1,
-                    f"{name}: {launches} kernel launches for {fit['nit'] + 1} objective calls")
+            require(launches == fit["nit"] + 1 == pf.post_fit.launches,
+                    f"{name}: {launches} kernel launches and {pf.post_fit.launches} post_fit "
+                    f"launches for {fit['nit'] + 1} objective calls")
             worst = _check_mi(name, mi_format.read_migration(out_mi),
                               mi_format.read_migration(os.path.join(fix, ref_file)))
             log(f"single fit {name} (float64, card): x {fit['x']} llh {fit['llh']!r}, nit "
@@ -1206,9 +1398,12 @@ def phase_single_fit(cf, rm, ea, torch, dev):
         Units.reset()
         ref_lines = open(os.path.join(fix, "ref_debug_stdout.txt")).read().splitlines()
         cf.correction_sweep.launches = 0
+        pf.post_fit.launches = 0
         rc, lines, wall = _run_cli(misti.main, synth + DEBUG_ARGS)
         launches = cf.correction_sweep.launches
         require(rc == 0, f"debug golden: rc {rc}")
+        require(pf.post_fit.launches == 3, f"debug golden: {pf.post_fit.launches} post_fit "
+                                           f"launches, expected 3")
 
         def grab(ls, prefix):
             hits = [ln for ln in ls if ln.startswith(prefix)]
@@ -1238,11 +1433,13 @@ def phase_single_fit(cf, rm, ea, torch, dev):
             cf.correction_sweep.launches = 0
             rm.row_matmul.launches = 0
             ea.expm_action.launches = 0
+            pf.post_fit.launches = 0
             torch.cuda.synchronize()
             rc, lines, wall = _run_cli(misti.main, argv + ["-o", out_mi])
             launches = cf.correction_sweep.launches
             rm_launches = rm.row_matmul.launches
             ea_launches = ea.expm_action.launches
+            pf_launches = pf.post_fit.launches
             require(rm_launches > 0, f"north-star {name}: row_matmul never launched")
             require(ea_launches > 0, f"north-star {name}: expm_action never launched")
             require(rc == 0, f"north-star {name}: rc {rc}")
@@ -1286,8 +1483,10 @@ def phase_single_fit(cf, rm, ea, torch, dev):
             rec["share_of_bound"] = rec["bound_ms"] / k_ms
             timed_record(rec, lambda: cf.correction_sweep(inp, **opts), 20)
             records.append(rec)
+            call = lambda: lik.llh_flags_batch(points)  # noqa: E731
+            records.append(post_fit_record(pf, torch, f"post_fit_{name}_single_fit_f64",
+                                           capture_post_fit(call), pf_launches, calls))
             if name == "cpfit":
-                call = lambda: lik.llh_flags_batch(points)  # noqa: E731
                 records.append(row_matmul_record(rm, torch, "row_matmul_collapse_single_fit_f64",
                                                  capture_row_matmul(call), rm_launches))
                 records.append(expm_action_record(ea, torch, "expm_action_k2_single_fit_f64",
@@ -1299,8 +1498,8 @@ def phase_single_fit(cf, rm, ea, torch, dev):
             log(f"north-star {name} timing: {wall:.3f} s wall, {calls} objective calls, "
                 f"{wall / calls * 1e3:.1f} ms per objective call, {fit['calls'] / wall:.1f} "
                 f"evals/s, {per_call} kernel launches per objective call ({n + 5} lanes), of "
-                f"them row_matmul {rm_launches / calls:.2f} and expm_action "
-                f"{ea_launches / calls:.2f}; "
+                f"them row_matmul {rm_launches / calls:.2f}, expm_action "
+                f"{ea_launches / calls:.2f} and post_fit {pf_launches / calls:.2f}; "
                 f"correction kernel at s = {s}, B = {B}, float64, shared tables: {k_ms:.4f} ms "
                 f"(device {rec['device_ms']:.4f} ms, host {rec['host_us']:.1f} us), "
                 f"plain {p_ms:.1f} ms, bound {rec['bound_ms']:.5f} ms ({rec['bound_by']}; "
@@ -1386,6 +1585,9 @@ def phase_sharded_sweep(cf, rm, ea, torch, dev, cpfit_run):
             f"sharded sweep: kernel launches {launches} for objective calls {calls}")
     for k in ("row_matmul_launches", "expm_action_launches"):
         require(min(summary[k]) > 0, f"sharded sweep: {k} per rank {summary[k]}")
+    require(summary["post_fit_launches"] == launches,
+            f"sharded sweep: post_fit launches per rank {summary['post_fit_launches']}, "
+            f"kernel launches {launches}: one each per objective call")
     require(np.array_equal(z["data"], data),
             "sharded sweep: the ranks' spectra differ from make_bootstrap_data(seed=0)")
     conv = z["nfev"] < 2 + 6 * maxiter  # one parameter: 2 + 6 per iteration
@@ -1435,6 +1637,7 @@ def phase_scenarios(cf, rm, ea, torch, dev):
     from misti_tpu_torch.engine.sweep_fused import build_fused_sweep
     from misti_tpu_torch.io import jsfs as io_jsfs
     from misti_tpu_torch.io import psmc as io_psmc
+    from misti_tpu_torch.kernels import post_fit as pf
 
     mdir = os.path.join(HERE, "tests", "fixtures", "matrix")
     with open(os.path.join(mdir, "matrix.json")) as f:
@@ -1457,6 +1660,7 @@ def phase_scenarios(cf, rm, ea, torch, dev):
     cf.correction_sweep.launches = 0
     rm.row_matmul.launches = 0
     ea.expm_action.launches = 0
+    pf.post_fit.launches = 0
     t = time.perf_counter()
     buf = io.StringIO()
     with contextlib.redirect_stderr(buf):
@@ -1467,6 +1671,7 @@ def phase_scenarios(cf, rm, ea, torch, dev):
     launches = cf.correction_sweep.launches
     rm_launches = rm.row_matmul.launches
     ea_launches = ea.expm_action.launches
+    pf_launches = pf.post_fit.launches
     require(rm_launches > 0, "scenarios: row_matmul never launched")
     require(ea_launches > 0, "scenarios: expm_action never launched")
     calls = sum(r.calls for r in results.values())
@@ -1490,7 +1695,8 @@ def phase_scenarios(cf, rm, ea, torch, dev):
             f"(table {table[name]['split_ci_gens']})")
     log(f"scenarios: {len(results)} scenarios resident in one process, {wall:.2f} s, "
         f"{calls} objective calls = {launches} kernel launches; per objective call: row_matmul "
-        f"{rm_launches / calls:.2f}, expm_action {ea_launches / calls:.2f} launches")
+        f"{rm_launches / calls:.2f}, expm_action {ea_launches / calls:.2f}, post_fit "
+        f"{pf_launches / calls:.2f} launches")
 
     # the per-lane kernel at the two-band scenario's first-stage width
     name = MATRIX_SCENARIOS[0]
@@ -1515,7 +1721,9 @@ def phase_scenarios(cf, rm, ea, torch, dev):
             row_matmul_record(rm, torch, "row_matmul_collapse_two_band",
                               capture_row_matmul(call), rm_launches),
             expm_action_record(ea, torch, "expm_action_k2_two_band",
-                               capture_expm_action(call, 44, 24), ea_launches)]
+                               capture_expm_action(call, 44, 24), ea_launches),
+            post_fit_record(pf, torch, "post_fit_cpfit_two_band", capture_post_fit(call),
+                            pf_launches, calls)]
 
 
 def main() -> int:
@@ -1528,6 +1736,7 @@ def main() -> int:
     from misti_tpu_torch import bench
     from misti_tpu_torch.kernels import correction_fused as cf
     from misti_tpu_torch.kernels import expm_action as ea
+    from misti_tpu_torch.kernels import post_fit as pf
     from misti_tpu_torch.kernels import row_matmul as rm
 
     dev = torch.device("cuda", 0)
@@ -1536,7 +1745,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     report = cf.compile_libs(cf.build_jobs(force=True) + rm.build_jobs(force=True)
-                             + ea.build_jobs(force=True))
+                             + ea.build_jobs(force=True) + pf.build_jobs(force=True))
     log(f"build: {time.perf_counter() - t0:.1f} s wall for {len(report)} libraries")
     for lib, (secs, ptxas, _) in sorted(report.items()):
         lines = [ln.strip() for ln in ptxas.splitlines()

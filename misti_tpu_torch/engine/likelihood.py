@@ -5,8 +5,9 @@ time intervals (MigrationInference.py:305-378 `CorrectLambdas` and :467-506
 `JAFSpectrum`).  Here every function is batch-first over candidate parameter
 vectors ``params (B, n_par)``: the pre-split correction is one fused sweep
 (kernels/correction_fused.py: a hand-written CUDA kernel on the card, its
-plain torch version on the CPU), the post-split fit and the spectrum are
-torch ops over (B, ...) tensors with a Python loop over intervals.
+plain torch version on the CPU), the post-split fit one more
+(kernels/post_fit.py), and the spectrum torch ops over (B, ...) tensors
+with a Python loop over intervals and a kernel per interval.
 
 The stages after the pre-split sweep (`post_split_fit`, `last_rate`,
 `smooth_rates`, `jafs_spectrum`, `multinomial_llh`) take interval tables
@@ -32,6 +33,7 @@ from ..config import LLH_DTYPE, resolve_device, resolve_dtype
 from ..kernels.correction import fit_single_pop
 from ..kernels.correction_fused import fused_correction
 from ..kernels.expm import expm_action_pair, sparse_basis
+from ..kernels.post_fit import post_fit
 from ..kernels.row_matmul import row_matmul
 from ..model import statespace as ss
 from .spec import ModelSpec
@@ -58,8 +60,19 @@ def post_split_fit(nc, lh_post, T_post, *, cpfit: bool):
     ``nc`` (B, 2) is the pre-split carry; ``lh_post`` (L, n, 2) and
     ``T_post`` (L, n) with L = 1 or B.  A T == 0 row gets lc = 1 and leaves
     the carry as it is (the reference's rule, :357-359).  Returns lc_post
-    (B, n, 2) and the final carry (B, 2).
+    (B, n, 2) and the final carry (B, 2).  CUDA tensors go to the hand
+    kernel (kernels/post_fit.py: one launch per call), CPU tensors to
+    `post_split_fit_plain`.
     """
+    if nc.is_cuda:
+        return post_fit(nc, lh_post, T_post, cpfit=cpfit)
+    return post_split_fit_plain(nc, lh_post, T_post, cpfit=cpfit)
+
+
+def post_split_fit_plain(nc, lh_post, T_post, *, cpfit: bool, moves=None):
+    """`post_split_fit` in torch ops: cpfit's closed form row by row, ECT's
+    _POST_OUTERS Jacobi rounds of batched root solves.  ``moves``, a list,
+    collects each ECT round's expansion counts (`fit_single_pop`)."""
     B, n_post = nc.shape[0], T_post.shape[1]
     if cpfit or n_post == 0:
         lc_post = []
@@ -95,7 +108,7 @@ def post_split_fit(nc, lh_post, T_post, *, cpfit: bool):
         # shift by the per-interval max: ratio-invariant, immune to f32 exp
         # underflow of the cumulative log no-coal mass
         w = torch.exp(nc_t - nc_t.max(dim=-1, keepdim=True).values)
-        lam = fit_single_pop(lh_post, t_safe, w)
+        lam = fit_single_pop(lh_post, t_safe, w, moves=moves)
         lam = torch.where(zero, torch.ones_like(lam), lam)
         lc_post = torch.stack([lam, lam], dim=-1)
     return lc_post, nc - (T_post[..., None] * lc_post).sum(1)

@@ -48,7 +48,8 @@ def _ect_dev(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x < switch, ser, direct)
 
 
-def fit_single_pop(lh: torch.Tensor, T: torch.Tensor, weights: torch.Tensor):
+def fit_single_pop(lh: torch.Tensor, T: torch.Tensor, weights: torch.Tensor, *,
+                   moves: list | None = None):
     """Solve ECT(lam, T) = sum_i w_i ECT(lh_i, T) for lam.
 
     ``lh`` (..., 2), ``T`` (...), ``weights`` (..., 2) unnormalised.  ECT is
@@ -66,7 +67,9 @@ def fit_single_pop(lh: torch.Tensor, T: torch.Tensor, weights: torch.Tensor):
     neither has one, g < 0 everywhere and the result is the lower bound.
     Per lane with fixed iteration counts: 60 halvings of a bracket no wider
     than ~2 x the root reach float64's last ulp above 100 and the
-    residual's own rounding below it.
+    residual's own rounding below it.  ``moves``, a list, gets the count
+    of expansion steps that moved the upper bound, per lane (the work
+    meter of kernels/post_fit.py).
     """
     w = weights / weights.sum(-1, keepdim=True)
     lh0, lh1 = lh[..., 0], lh[..., 1]
@@ -101,8 +104,14 @@ def fit_single_pop(lh: torch.Tensor, T: torch.Tensor, weights: torch.Tensor):
     # the lower branch's expansion stops at 100, never past lo
     cap = torch.where(up, torch.full_like(x0, float("inf")), torch.maximum(hundred, lower))
     hi = torch.where(up, torch.maximum(hi, lo_up), torch.minimum(hi, cap))
+    moved = 0
     for _ in range(_EXPAND_ITERS):
-        hi = torch.where(g(hi) >= 0, torch.minimum(hi * 2.0, cap), hi)
+        new = torch.where(g(hi) >= 0, torch.minimum(hi * 2.0, cap), hi)
+        if moves is not None:
+            moved = moved + ((new != hi) & ~torch.isnan(new)).to(torch.int32)
+        hi = new
+    if moves is not None:
+        moves.append(moved)
     for _ in range(_BISECT_ITERS):
         mid = 0.5 * (lo + hi)
         rise = g(mid) >= 0

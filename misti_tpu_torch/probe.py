@@ -14,7 +14,8 @@ in.  It takes the sweep's first Nelder-Mead iteration (808 cells x
 
 * evaluates the 6 lanes alone and inside the 4848-lane batch, records every
   stage's output in both runs (the mapped kernel input, the correction
-  kernel, the post-split fit and each of its root solves, the last rate,
+  kernel, the post-split fit (its kernel on the card, its root solves on
+  the CPU), the last rate,
   the smoothing, each interval's ``expm_action_pair``, the last interval's
   solve, the spectrum, the llh) and compares them on those lanes, bitwise
   and by the largest difference; cpfit and ECT;
@@ -24,11 +25,12 @@ in.  It takes the sweep's first Nelder-Mead iteration (808 cells x
 
 ``host`` splits the host time per call of the spectrum's two hand kernels'
 wrappers (`row_matmul` at the collapse map, `expm_action` at the 44-state
-basis with the projection; the sweep's 4848 lanes, per-lane interval
-lengths) into its steps, each timed alone with the host clock over 200
-calls and no synchronise: the whole wrapper, the ctypes call that launches
-the kernel (arguments made beforehand), the output allocations and the
-stream lookup; and the same for ``torch.matmul`` of the same product.
+basis with the projection) and of the post-split fit's (`post_fit`, cpfit,
+33 intervals of per-lane tables), at the sweep's 4848 lanes, into its
+steps, each timed alone with the host clock over 200 calls and no
+synchronise: the whole wrapper, the ctypes call that launches the kernel
+(arguments made beforehand), the output allocations and the stream
+lookup; and the same for ``torch.matmul`` of the collapse product.
 
 Prints JSON lines and the card's name and power limit; ``--out`` also
 writes them to a file.  Needs a card.
@@ -325,6 +327,7 @@ HOST_REPS = 200
 
 def host_main(args, emit):
     from .kernels import expm_action as ea
+    from .kernels import post_fit as pf
     from .kernels import row_matmul as rm
 
     dev, B, reps = torch.device(args.device), HOST_LANES, HOST_REPS
@@ -374,6 +377,23 @@ def host_main(args, emit):
     steps["checks_and_rest"] = steps["wrapper"] - steps["launch"] - steps["alloc"] - steps["stream"]
     emit({"probe": "host", "kernel": "expm_action", "instance": "k2 (n = 44, C = 4) with the "
           "projection, per-lane t", "lanes": B, "reps": reps, "us": steps})
+
+    # post_fit, cpfit (a short kernel: the queue does not fill), per-lane tables
+    n = 33
+    nc = tens(-rng.uniform(0.0, 3.0, (B, 2)))
+    lh = tens(rng.uniform(0.2, 3.0, (B, n, 2)))
+    tq = tens(rng.uniform(0.005, 0.6, (B, n)))
+    out = nc.new_empty((B, 2 * n + 2))
+    fn = pf._load()
+    a = (nc.data_ptr(), 2, 1, lh.data_ptr(), lh.stride(0), 2, 1, tq.data_ptr(), n, 1,
+         out.data_ptr(), B, n, 1, idx, stream())
+    steps = {"wrapper": _host_us(lambda: pf.post_fit(nc, lh, tq, cpfit=True), reps),
+             "launch": _host_us(lambda: fn(*a), reps),
+             "alloc": _host_us(lambda: nc.new_empty((B, 2 * n + 2)), reps),
+             "stream": _host_us(stream, reps)}
+    steps["checks_and_rest"] = steps["wrapper"] - steps["launch"] - steps["alloc"] - steps["stream"]
+    emit({"probe": "host", "kernel": "post_fit", "instance": "cpfit, per-lane tables, n = 33",
+          "lanes": B, "reps": reps, "us": steps})
 
 
 def main(argv=None) -> int:

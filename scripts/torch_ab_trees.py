@@ -16,10 +16,10 @@ measures on the north-star command (tests/fixtures/sweep*.psmc + sweep.jsfs,
 * one objective call of that width under torch.profiler (cpfit, ECT): CUDA
   kernel launches, their device time and its share of the call's wall, and
   the five kernels with the most device time (ms, launches);
-* the north-star single fit at split 24, row 0, cpfit (float64, as the
-  single-fit CLI runs it): wall, objective calls, ms per call, CUDA kernel
-  launches per call (torch.profiler on one call of its 6 lanes), and each
-  hand kernel's launches per call where the checkout counts them.
+* the north-star single fit at split 24, row 0, cpfit and ECT (float64,
+  as the single-fit CLI runs it): wall, objective calls, ms per call, CUDA
+  kernel launches per call (torch.profiler on one call of its 6 lanes),
+  and each hand kernel's launches per call where the checkout counts them.
 
 Prints one JSON object per run and the card's name and power limit; with
 ``--out`` also writes them to FILE.  Builds each checkout's kernels into its
@@ -29,6 +29,7 @@ own build/ at first use.  Needs a card.
 from __future__ import annotations
 
 import argparse
+import importlib
 import json
 import os
 import subprocess
@@ -58,11 +59,12 @@ def measure(device: str, rows: int) -> dict:
 
     counters = {"correction_sweep": correction_fused.correction_sweep,
                 "row_matmul": row_matmul.row_matmul}
-    try:
-        from misti_tpu_torch.kernels import expm_action
-        counters["expm_action"] = expm_action.expm_action
-    except ImportError:
-        pass
+    for name in ("expm_action", "post_fit"):  # hand kernels a checkout may not have
+        try:
+            counters[name] = getattr(importlib.import_module(f"misti_tpu_torch.kernels.{name}"),
+                                     name)
+        except ImportError:
+            pass
 
     dev = torch.device(device)
     cuda = dev.type == "cuda"
@@ -120,34 +122,35 @@ def measure(device: str, rows: int) -> dict:
         out[f"{mode}_call"]["lanes"] = W * P
 
     sfs = list(io_jsfs.read_jafs(f"{FIX}/sweep.jsfs").jafs[0])
-    spec = build_spec(inp.times, inp.lambdas, sfs, 24, [[1, 4, 24, 3.0, 1]], [], cpfit=True,
-                      smooth=True, unfolded=True, sample_date=inp.sample_date_discr,
-                      thrh=(inp.theta, inp.rho))
-    lik = build_likelihood(spec, device=dev, dtype=torch.float64)
-    calls = [0]
-    inner = lik.llh_flags_batch
+    for mode, cpfit in (("cpfit", True), ("ect", False)):
+        spec = build_spec(inp.times, inp.lambdas, sfs, 24, [[1, 4, 24, 3.0, 1]], [],
+                          cpfit=cpfit, smooth=True, unfolded=True,
+                          sample_date=inp.sample_date_discr, thrh=(inp.theta, inp.rho))
+        lik = build_likelihood(spec, device=dev, dtype=torch.float64)
+        calls = [0]
+        inner = lik.llh_flags_batch
 
-    def counted(p):
-        calls[0] += 1
-        return inner(p)
+        def counted(p, inner=inner):
+            calls[0] += 1
+            return inner(p)
 
-    lik.llh_flags_batch = counted
-    solve(lik)  # warm-up
-    calls[0] = 0
-    before = {k: c.launches for k, c in counters.items()}
-    sync()
-    t = time.perf_counter()
-    res = solve(lik)
-    sync()
-    wall = time.perf_counter() - t
-    points = torch.as_tensor(res.x, dtype=torch.float64, device=dev) * (
-        1.0 + 0.01 * torch.arange(6, dtype=torch.float64, device=dev))[:, None]
-    out["single_fit_cpfit"] = {
-        "wall_s": wall, "calls": calls[0], "ms_per_call": wall / calls[0] * 1e3,
-        "x": res.x.tolist(), "llh": res.llh,
-        "hand_kernel_launches_per_call": {k: (c.launches - before[k]) / calls[0]
-                                          for k, c in counters.items()},
-        "call": profiled(lambda: inner(points))}
+        lik.llh_flags_batch = counted
+        solve(lik)  # warm-up
+        calls[0] = 0
+        before = {k: c.launches for k, c in counters.items()}
+        sync()
+        t = time.perf_counter()
+        res = solve(lik)
+        sync()
+        wall = time.perf_counter() - t
+        points = torch.as_tensor(res.x, dtype=torch.float64, device=dev) * (
+            1.0 + 0.01 * torch.arange(6, dtype=torch.float64, device=dev))[:, None]
+        out[f"single_fit_{mode}"] = {
+            "wall_s": wall, "calls": calls[0], "ms_per_call": wall / calls[0] * 1e3,
+            "x": res.x.tolist(), "llh": res.llh,
+            "hand_kernel_launches_per_call": {k: (c.launches - before[k]) / calls[0]
+                                              for k, c in counters.items()},
+            "call": profiled(lambda: inner(points))}
     return out
 
 
