@@ -6,9 +6,10 @@
 Phases, each fatal on failure:
   1. build the CUDA kernels (one nvcc per library, all started together) and
      print each template instance's registers, spill bytes and resident
-     blocks per SM (an ``attrs`` line each, the post-split fit's two
-     kernels too; a spill in a float32 instance of the correction sweep or
-     in ``expm_action`` fails);
+     blocks per SM (an ``attrs`` line each, the post-split fit's ECT kernel
+     at every G threads a solve and its cpfit kernel too, with resident
+     clusters; a spill in a float32 instance of the correction sweep, in
+     ``expm_action`` or in either ``post_fit`` kernel fails);
   2. each variant of the correction sweep against its plain torch version
      on the card, in float64 and float32, at s = 28 intervals and 512
      lanes; ``row_matmul`` (float64 only) at each of the spectrum's products
@@ -17,8 +18,10 @@ Phases, each fatal on failure:
      t == 0), and ``post_fit`` (the post-split fit, float64 only) in both
      residual modes with shared and per-lane tables (T == 0 rows, rates on
      both sides of the raw-rate guard at 100, x = lam T around 1/4, a NaN
-     lane), with every prefix of SUB_WIDTHS lanes bitwise what it is in
-     the whole batch, and float32 operands refused;
+     lane; and a per-lane case of 200 intervals, two a warp), at every G
+     threads a solve bitwise the same, with every prefix of SUB_WIDTHS
+     lanes bitwise what it is in the whole batch, and float32 operands
+     refused;
   3. the main path at full size -- the bench workload (64 intervals, split
      28, one band, 4096 candidates) through ``build_likelihood(...).llh_batch``
      for cpfit, ECT and trueEPS -- with launch counts, timings, and the
@@ -62,13 +65,17 @@ Every path requires each of its kernels (the correction sweep, ``row_matmul``,
 ``expm_action``, ``post_fit``) to have launched, the post-split fit exactly
 once per objective call, and prints their launches per objective call;
 phases 3, 6, 7 and 9 hold ``post_fit`` against its plain version on the
-real inputs of one objective call and record that instance (phase 6 also
-prints the CUDA launches of one objective call as torch.profiler sees
-them).  Each kernel record carries ``ms`` (CUDA events around back-to-back
-calls), ``device_ms`` (the kernels' own device time per call, from
-torch.profiler, or from CUDA events behind a spin kernel on both sides of
-the record where the profiler's launch count fails) and ``host_us`` (the
-wrapper's host time per call, no synchronise), and the library call's
+real inputs of one objective call and record that instance, at every G
+bitwise the same (and, where G > 1, timed at G = 1 beside it), with its
+launch shape (G, blocks, clusters, waves) and, in ECT, `warp_branch_mix`
+under the PR 9 kernel's thread mapping and the lane-major one (phase 6
+also prints the CUDA launches of one objective call as torch.profiler
+sees them).  Each kernel record carries ``ms``
+(CUDA events around back-to-back calls), ``device_ms`` (the kernels' own
+device time per call, from torch.profiler, or from CUDA events behind a
+spin kernel on both sides of the record where the profiler's launch count
+fails) and ``host_us`` (the wrapper's host time per call, no
+synchronise), and the library call's
 ``library_ms``, ``library_device_ms`` and ``library_host_us`` where there
 is one.  Prints each phase's wall, a
 ``kernels`` JSON line, the card's name and power limit, and as the last line
@@ -118,6 +125,8 @@ SINGLE_PROFILES = 5
 # per-lane table cases of phase 2: the sweep path's s_max and its narrowest
 # and widest kernel batches (odd widths: not multiples of a block's 8 lanes)
 PER_LANE_S, PER_LANE_B = 27, (6, 4851)
+# phase 2's post_fit case past 144 intervals (two intervals a warp): (B, per lane, n)
+POST_FIT_WIDE = (45, True, 200)
 # the north-star sweep of phase 6 (upstream's test.bs bootstrap-CI command)
 SWEEP_SPLITS = [float(v) for v in range(20, 28)]
 SWEEP_MI = [["1", "4", "ST", "3", "1"]]
@@ -339,6 +348,18 @@ def check_close(name, got, want, rtol, atol):
     worst = float(excess.max()) if err.numel() else -1.0
     require(worst <= 0, f"{name}: exceeds rtol={rtol} atol={atol} by {worst:.3e}")
     return float(err.max()) if err.numel() else 0.0
+
+
+def same_bits(x, y) -> bool:
+    """Bitwise equal: the same shape and NaN mask, and the same bits
+    everywhere else (so -0 is not +0, nor inf the largest double)."""
+    import torch
+
+    if x.shape != y.shape or x.dtype != y.dtype:
+        return False
+    nan = x.isnan()
+    ints = {2: torch.int16, 4: torch.int32, 8: torch.int64}[x.element_size()]
+    return torch.equal(nan, y.isnan()) and torch.equal(x.view(ints)[~nan], y.view(ints)[~nan])
 
 
 def lanes_off(got, want, rel=1e-6) -> int:
@@ -581,15 +602,19 @@ def post_fit_inputs(torch, dev, B, n, per_lane, seed):
     return tuple(torch.tensor(a, dtype=torch.float64, device=dev) for a in (nc, lh, T))
 
 
-def check_post_fit(pf, lk, torch, name, args, kw):
-    """The post-split fit's kernel against its plain version on one input:
-    rtol 1e-6 / atol 1e-9 with equal NaN masks on lc and the final carry,
-    and each prefix of SUB_WIDTHS lanes bitwise as in the whole batch.
-    Returns (max abs error, max relative error, bitwise, launches made)."""
+def check_post_fit(pf, lk, torch, name, args, kw, want=None):
+    """The post-split fit's kernel against its plain version on one input
+    (``want``, where it is already computed): rtol 1e-6 / atol 1e-9 with
+    equal NaN masks on lc and the final carry, the largest relative
+    difference at most 1e-12 (cpfit bitwise), every G
+    (threads a solve) bitwise equal to the batch's own, and each prefix of
+    SUB_WIDTHS lanes bitwise as in the whole batch.  Returns (max abs
+    error, max relative error, bitwise, launches made)."""
     nc, lh, T = args
     B, per_lane = nc.shape[0], lh.shape[0] > 1
     got = pf.post_fit(*args, **kw)
-    want = lk.post_split_fit_plain(*args, **kw)
+    if want is None:
+        want = lk.post_split_fit_plain(*args, **kw)
     errs = [check_close(f"{name} {o}", g, w, 1e-6, 1e-9)
             for o, g, w in zip(("lc", "nc_fin"), got, want)]
     rel = 0.0
@@ -597,15 +622,21 @@ def check_post_fit(pf, lk, torch, name, args, kw):
         fin = torch.isfinite(w) & (w != 0)
         if fin.any():
             rel = max(rel, float(((g - w).abs() / w.abs())[fin].max()))
-    bitwise = all(torch.equal(g.nan_to_num(), w.nan_to_num()) for g, w in zip(got, want))
+    bitwise = all(same_bits(g, w) for g, w in zip(got, want))
+    require(bitwise or not kw["cpfit"], f"{name}: cpfit not bitwise equal to its plain version")
+    require(rel <= 1e-12, f"{name}: largest relative difference {rel:.3e} > 1e-12")
     n = 1
+    for g in pf.GROUPS:
+        other = pf.post_fit(*args, group=g, **kw)
+        n += 1
+        require(all(same_bits(x, y) for x, y in zip(other, got)),
+                f"{name}: G = {g} threads a solve differ from the batch's own")
     for k in SUB_WIDTHS:
         if k < B:
             part = pf.post_fit(nc[:k], lh[:k] if per_lane else lh, T[:k] if per_lane else T,
                                **kw)
             n += 1
-            require(all(torch.equal(x.nan_to_num(), y[:k].nan_to_num())
-                        for x, y in zip(part, got)),
+            require(all(same_bits(x, y[:k]) for x, y in zip(part, got)),
                     f"{name}: the first {k} lanes differ from their rows of the {B}-lane batch")
     return max(errs), rel, bitwise, n
 
@@ -636,7 +667,9 @@ def post_fit_record(pf, torch, name, captured, launches, calls):
     its plain version (`check_post_fit`), timed beside it and held to its
     bound (`post_fit_ops`, the work the function needs, over the FP64 rate;
     `post_fit_bytes` over HBM).  No single PyTorch call does the bracketed
-    root solves: no library call.  ``launches`` over ``calls`` objective
+    root solves: no library call.  Where the wrapper takes G > 1 threads a
+    solve, the same call at G = 1 is timed beside it (device time by events
+    on both, in turns G, 1, 1, G).  ``launches`` over ``calls`` objective
     calls must be one per call."""
     from misti_tpu_torch.engine import likelihood as lk
 
@@ -645,7 +678,14 @@ def post_fit_record(pf, torch, name, captured, launches, calls):
     a, kw = captured
     nc, lh, T = a
     B, (L, n) = nc.shape[0], T.shape
-    err, rel, bitwise, _ = check_post_fit(pf, lk, torch, name, a, kw)
+    want = lk.post_split_fit_plain(*a, **kw)
+    err, rel, bitwise, _ = check_post_fit(pf, lk, torch, name, a, kw, want)
+    shape = pf.launch_shape(B, n, cpfit=kw["cpfit"])
+    mix = {}
+    if not kw["cpfit"]:
+        for layout in ("old", "lane"):
+            mix[layout] = pf.warp_branch_mix(*a, layout=layout, group=shape.get("group", 1),
+                                             lc=want[0])
     run = lambda: pf.post_fit(*a, **kw)  # noqa: E731
     k_ms = cuda_ms(run, 10)
     p_ms = cuda_ms(lambda: lk.post_split_fit_plain(*a, **kw), 1)
@@ -656,9 +696,17 @@ def post_fit_record(pf, torch, name, captured, launches, calls):
            "launches": launches, "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
            "bound_ms": max(t_ops, t_bytes) * 1e3,
            "bound_by": "operations" if t_ops >= t_bytes else "bytes", "library_ms": None,
-           "max_rel_err": rel}
+           "max_rel_err": rel, "launch": shape, "warp_branch_mix": mix}
     rec["share_of_bound"] = rec["bound_ms"] / k_ms
     timed_record(rec, run, 10)
+    if shape.get("group", 1) > 1:
+        run1 = lambda: pf.post_fit(*a, group=1, **kw)  # noqa: E731
+        enq = max(rec["host_us"], host_us(run1, 10))
+        ev = [events_ms(f, 20, enq) for f in (run, run1, run1, run)]
+        rec["g1_vs_g"] = {"G": shape["group"], "device_ms_ev": [ev[0], ev[3]],
+                          "g1_device_ms_ev": [ev[1], ev[2]], "ms": k_ms,
+                          "g1_ms": cuda_ms(run1, 10)}
+        log(f"{name} G = {shape['group']} against G = 1: {json.dumps(rec['g1_vs_g'])}")
     log(f"{name} at B = {B}, n = {n}, {'per-lane' if L > 1 else 'shared'} tables, "
         f"{'cpfit' if kw['cpfit'] else 'ECT'}, T == 0 rows {int((T == 0).sum())}: {k_ms:.4f} ms "
         f"(device {rec['device_ms']:.4f} ms by {rec['device_ms_by']}, host "
@@ -667,7 +715,11 @@ def post_fit_record(pf, torch, name, captured, launches, calls):
         f"{rec['share_of_bound']:.1%} of bound ({rec['bound_ms'] / rec['device_ms']:.1%} of "
         f"device_ms), max|d| {err:.3e}, max rel d {rel:.3e}, bitwise equal to the plain "
         f"version {bitwise}, {launches} launches for {calls} objective calls; widths "
-        f"{[k for k in SUB_WIDTHS if k < B]} bitwise as in the batch")
+        f"{[k for k in SUB_WIDTHS if k < B]} bitwise as in the batch; every G bitwise the "
+        f"same")
+    log(f"{name} launch: {json.dumps(shape)}")
+    for layout, m in mix.items():
+        log(f"{name} warp_branch_mix {layout}: {json.dumps(m)}")
     return rec
 
 
@@ -681,6 +733,7 @@ def phase_attrs(cf, rm, ea, torch):
 
     for a in pf.kernel_attrs():
         log("attrs " + json.dumps({"library": "post_fit_float64", **a}))
+        require(a["local_bytes"] == 0, f"post_fit {a}: uses local memory")
     for a in ea.kernel_attrs():
         log("attrs " + json.dumps({"library": "expm_action_float64", **a}))
         require(a["local_bytes"] == 0, f"expm_action {a}: uses local memory")
@@ -841,19 +894,19 @@ def phase_kernels(cf, rm, ea, torch, dev):
     from misti_tpu_torch.kernels import post_fit as pf
 
     before, n = pf.post_fit.launches, 0
-    for B in PER_LANE_B:
-        for per_lane, n_post in ((False, 35), (True, 33)):
-            args = post_fit_inputs(torch, dev, B, n_post, per_lane, SEED + B)
-            for cpfit in (False, True):
-                tag = (f"post_fit {'cpfit' if cpfit else 'ect'} B={B} n={n_post} "
-                       f"{'per-lane' if per_lane else 'shared'} float64")
-                err, rel, bitwise, k = check_post_fit(pf, lk, torch, tag, args,
-                                                      dict(cpfit=cpfit))
-                n += k
-                log(f"kernel-vs-plain {tag}: max|d| {err:.3e}, max rel d {rel:.3e} (rtol 1e-6 "
-                    f"atol 1e-9, NaN masks equal), bitwise equal to the plain version "
-                    f"{bitwise}; prefixes of {[w for w in SUB_WIDTHS if w < B]} lanes bitwise "
-                    f"as in the batch")
+    cases = [(B, per_lane, n_post) for B in PER_LANE_B
+             for per_lane, n_post in ((False, 35), (True, 33))] + [POST_FIT_WIDE]
+    for B, per_lane, n_post in cases:
+        args = post_fit_inputs(torch, dev, B, n_post, per_lane, SEED + B)
+        for cpfit in (False, True):
+            tag = (f"post_fit {'cpfit' if cpfit else 'ect'} B={B} n={n_post} "
+                   f"{'per-lane' if per_lane else 'shared'} float64")
+            err, rel, bitwise, k = check_post_fit(pf, lk, torch, tag, args, dict(cpfit=cpfit))
+            n += k
+            log(f"kernel-vs-plain {tag}: max|d| {err:.3e}, max rel d {rel:.3e} (rtol 1e-6 "
+                f"atol 1e-9, NaN masks equal), bitwise equal to the plain version "
+                f"{bitwise}; G = {list(pf.GROUPS)} bitwise the same; prefixes of "
+                f"{[w for w in SUB_WIDTHS if w < B]} lanes bitwise as in the batch")
     moved = pf.post_fit.launches - before
     require(moved == n, f"post_fit launch counter moved {moved}, expected {n}")
     x = post_fit_inputs(torch, dev, 6, 35, False, SEED)

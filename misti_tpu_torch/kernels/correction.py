@@ -49,7 +49,7 @@ def _ect_dev(x: torch.Tensor) -> torch.Tensor:
 
 
 def fit_single_pop(lh: torch.Tensor, T: torch.Tensor, weights: torch.Tensor, *,
-                   moves: list | None = None):
+                   moves: list | None = None, halvings: list | None = None):
     """Solve ECT(lam, T) = sum_i w_i ECT(lh_i, T) for lam.
 
     ``lh`` (..., 2), ``T`` (...), ``weights`` (..., 2) unnormalised.  ECT is
@@ -68,8 +68,10 @@ def fit_single_pop(lh: torch.Tensor, T: torch.Tensor, weights: torch.Tensor, *,
     Per lane with fixed iteration counts: 60 halvings of a bracket no wider
     than ~2 x the root reach float64's last ulp above 100 and the
     residual's own rounding below it.  ``moves``, a list, gets the count
-    of expansion steps that moved the upper bound, per lane (the work
-    meter of kernels/post_fit.py).
+    of expansion steps that moved the upper bound, per lane, and
+    ``halvings`` the count of halvings up to the first that leaves the
+    bracket's bits as they were (60 if none does; from there on every
+    halving repeats it), per lane: the work meters of kernels/post_fit.py.
     """
     w = weights / weights.sum(-1, keepdim=True)
     lh0, lh1 = lh[..., 0], lh[..., 1]
@@ -112,11 +114,17 @@ def fit_single_pop(lh: torch.Tensor, T: torch.Tensor, weights: torch.Tensor, *,
         hi = new
     if moves is not None:
         moves.append(moved)
-    for _ in range(_BISECT_ITERS):
+    steps = None if halvings is None else torch.full_like(lo, _BISECT_ITERS, dtype=torch.int32)
+    for i in range(_BISECT_ITERS):
         mid = 0.5 * (lo + hi)
         rise = g(mid) >= 0
+        if halvings is not None:
+            kept = mid.view(torch.int64) == torch.where(rise, lo, hi).view(torch.int64)
+            steps = torch.where(kept & (steps == _BISECT_ITERS), i + 1, steps)
         lo = torch.where(rise, mid, lo)
         hi = torch.where(rise, hi, mid)
+    if halvings is not None:
+        halvings.append(steps)
     return 0.5 * (lo + hi)
 
 

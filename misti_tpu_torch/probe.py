@@ -2,6 +2,7 @@
 
     python -m misti_tpu_torch.probe width [--cell C] [--out FILE]
     python -m misti_tpu_torch.probe host [--out FILE]
+    python -m misti_tpu_torch.probe mix [--device cpu] [--out FILE]
 
 The north-star sweep is upstream's test.bs command on the repo's fixtures
 (tests/fixtures/sweep*.psmc + sweep.jsfs, ``--splits 20 27 -bs 100 -mi 1 4
@@ -32,8 +33,22 @@ synchronise: the whole wrapper, the ctypes call that launches the kernel
 (arguments made beforehand), the output allocations and the stream
 lookup; and the same for ``torch.matmul`` of the collapse product.
 
+``mix`` asks how the post-split fit's ECT root solves split the kernel's
+warps.  It captures the first post-split fit of the north-star ECT sweep
+(the sweep CLI; 808 cells x 2 simplex vertices = 1616 lanes, per-lane
+tables), of the bench's ECT batch (4096 lanes, one shared table) and of the
+north-star ECT single fit at split 24 (row 0), and prints for each
+`kernels/post_fit.py` `warp_branch_mix` under the PR 9 kernel's mapping
+("old") and the lane-major one at the G the kernel takes there ("lane"):
+the share of warps that hold both forms of the residual, and T == 0 rows
+beside live ones; and what the kernel's two shortcuts skip there (the
+share of rounds 2-6's solves whose prefix repeats the last round's, bit for
+bit, and the mean halvings a solve evaluates before its bracket stops
+moving).  It counts rows with the plain version, so ``--device cpu`` gives
+the card's numbers up to the roots' last bits.
+
 Prints JSON lines and the card's name and power limit; ``--out`` also
-writes them to a file.  Needs a card.
+writes them to a file.  Needs a card, but for ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -396,6 +411,86 @@ def host_main(args, emit):
           "lanes": B, "reps": reps, "us": steps})
 
 
+class _Captured(BaseException):
+    """Stops a run at its first post-split fit."""
+
+
+def _first_post_fit(run) -> tuple:
+    """(nc, lh_post, T_post) of the first post-split fit ``run()`` makes."""
+    seen, mods = [], (lk, sf)
+
+    def rec(*a, **kw):
+        seen.append(a)
+        raise _Captured
+
+    orig = [m.post_split_fit for m in mods]
+    for m in mods:
+        m.post_split_fit = rec
+    try:
+        run()
+    except _Captured:
+        pass
+    finally:
+        for m, f in zip(mods, orig):
+            m.post_split_fit = f
+    return seen[0]
+
+
+def _solve_work(nc, lh, T) -> dict:
+    """What the ECT kernel's two shortcuts skip on these inputs, counted with
+    `kernels/post_fit.py` `ect_work` (the plain version's solves): of the
+    live solves of rounds 2-6, the share whose prefix of T * lc repeats the
+    last round's bit for bit; and the mean number of halvings a live solve
+    evaluates before its bracket reaches a fixed point (60 without one),
+    over every round's live solves and over those the kernel makes."""
+    from .kernels import post_fit as pf
+
+    work = pf.ect_work(nc, lh, T)
+    live, rounds = work["solved"][0], len(work["solved"])
+    skipped = sum(int((live & ~s).sum()) for s in work["solved"][1:])
+    halvings = torch.stack(work["halvings"]).double()
+    solved = torch.stack(work["solved"])
+    return {"solves": int(live.sum()) * rounds, "solved": int(solved.sum()),
+            "repeated_prefix_share": skipped / max(int(live.sum()) * (rounds - 1), 1),
+            "halvings_mean": float(halvings[:, live].mean()),
+            "halvings_mean_solved": float(halvings[solved].mean())}
+
+
+def mix_main(args, emit):
+    from . import build_likelihood, build_spec
+    from .bench import bench_params, bench_spec
+    from .cli import sweep as cli_sweep
+    from .engine.optimize import solve
+    from .kernels import post_fit as pf
+
+    dev = torch.device(args.device)
+    fix = os.path.join(REPO, "tests", "fixtures")
+    files = [os.path.join(fix, f) for f in ("sweep1.psmc", "sweep2.psmc", "sweep.jsfs")]
+    argv = files + ["--splits", "20", "27", "-bs", str(REPLICATES), "-mi", "1", "4", "ST", "3",
+                    "1", "-uf", "--funits", "/nonexistent"]
+    argv += ["--platform", "cpu"] if dev.type == "cpu" else []
+    inp = io_psmc.read_psmc(files[0], files[1], 0, -1)
+    sfs = list(io_jsfs.read_jafs(files[2]).jafs[0])
+    spec = build_spec(inp.times, inp.lambdas, sfs, 24, [[1, 4, 24, 3.0, 1]], [], cpfit=False,
+                      smooth=True, unfolded=True, sample_date=inp.sample_date_discr,
+                      thrh=(inp.theta, inp.rho))
+    bench = build_likelihood(bench_spec("ect"), device=dev, dtype=LLH_DTYPE)
+    runs = {"sweep, first ECT call": lambda: cli_sweep.main(argv),
+            "bench, ECT": lambda: bench.llh_batch(bench_params(4096, dev, LLH_DTYPE)),
+            "single fit, ECT": lambda: solve(build_likelihood(spec, device=dev,
+                                                              dtype=LLH_DTYPE))}
+    for name, run in runs.items():
+        nc, lh, T = _first_post_fit(run)
+        B, (L, n) = nc.shape[0], T.shape
+        G = pf.threads_per_solve(B, n)
+        lc, _ = lk.post_split_fit_plain(nc, lh, T, cpfit=False)
+        emit({"probe": "mix", "input": name, "lanes": B, "intervals": n,
+              "tables": "per lane" if L > 1 else "shared", "G": G,
+              "old": pf.warp_branch_mix(nc, lh, T, "old", lc=lc),
+              "lane": pf.warp_branch_mix(nc, lh, T, "lane", G, lc=lc),
+              "work": _solve_work(nc, lh, T)})
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -406,6 +501,9 @@ def main(argv=None) -> int:
     h = sub.add_parser("host")
     h.add_argument("--out", default="")
     h.set_defaults(device="cuda")
+    m = sub.add_parser("mix")
+    m.add_argument("--out", default="")
+    m.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = p.parse_args(argv)
     if args.device == "cuda" and not torch.cuda.is_available():
         print("probe: torch.cuda.is_available() is False", file=sys.stderr)
@@ -419,7 +517,7 @@ def main(argv=None) -> int:
         print(s, flush=True)
 
     with contextlib.redirect_stderr(io.StringIO()):
-        (width_main if args.cmd == "width" else host_main)(args, emit)
+        {"width": width_main, "host": host_main, "mix": mix_main}[args.cmd](args, emit)
     if args.out:
         with open(args.out, "w") as f:
             f.write("\n".join(lines) + "\n")

@@ -19,7 +19,13 @@ measures on the north-star command (tests/fixtures/sweep*.psmc + sweep.jsfs,
 * the north-star single fit at split 24, row 0, cpfit and ECT (float64,
   as the single-fit CLI runs it): wall, objective calls, ms per call, CUDA
   kernel launches per call (torch.profiler on one call of its 6 lanes),
-  and each hand kernel's launches per call where the checkout counts them.
+  and each hand kernel's launches per call where the checkout counts them;
+* the post-split fit (``post_split_fit``, the ``post_fit`` kernel on the
+  card): its device time in each profiled call, and a digest (SHA-256 of
+  the outputs' bytes) of its outputs in both residual modes on chip_smoke.py
+  phase 2's synthetic inputs and on the inputs the paths give it (the
+  bench's 4096 lanes, the sweep's profiled call, the single fit's), so that
+  two checkouts' kernels can be shown bitwise equal.
 
 Prints one JSON object per run and the card's name and power limit; with
 ``--out`` also writes them to FILE.  Builds each checkout's kernels into its
@@ -29,6 +35,7 @@ own build/ at first use.  Needs a card.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import importlib
 import json
 import os
@@ -39,6 +46,67 @@ import time
 FIX = "tests/fixtures"
 SPLITS = [float(v) for v in range(20, 28)]
 MI = [["1", "4", "ST", "3", "1"]]
+# chip_smoke.py phase 2's post_fit cases: (lanes, per-lane tables, intervals)
+PF_CASES = ((6, False, 35), (6, True, 33), (4851, False, 35), (4851, True, 33), (45, True, 200))
+
+
+def post_fit_inputs(torch, dev, B, n, per_lane, seed):
+    """chip_smoke.py's `post_fit_inputs`: (nc, lh_post, T_post), float64."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    L = B if per_lane else 1
+    T = rng.uniform(0.005, 0.6, (L, n))
+    lh = rng.uniform(0.2, 3.0, (L, n, 2)) * 10.0 ** rng.uniform(-0.5, 0.5, (L, n, 1))
+    T[:, 3] = 0.0
+    T[:, -2:] = 0.0
+    lh[:, 5] = [60.0, 180.0]
+    lh[:, 6] = [150.0, 300.0]
+    T[:, 5:7] = 0.01
+    T[:, 4] = 0.25 / lh[:, 4].mean(-1) * rng.uniform(0.9, 1.1, L)
+    if per_lane:
+        for b in range(B):
+            if b % 3:
+                T[b, n - 1 - b % 4:] = 0.0
+    nc = np.stack([-rng.uniform(0.0, 3.0, B), -rng.uniform(0.0, 3.0, B)], -1)
+    nc[2, 1] = -40.0
+    nc[4] = np.nan
+    return tuple(torch.tensor(a, dtype=torch.float64, device=dev) for a in (nc, lh, T))
+
+
+def digest(outs) -> str:
+    h = hashlib.sha256()
+    for o in outs:
+        h.update(o.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+class Capture:
+    """Records the arguments of the first post-split fit of the likelihood
+    (engine/likelihood.py) and of the grid sweep (engine/sweep_fused.py)
+    while active."""
+
+    def __init__(self):
+        from misti_tpu_torch.engine import likelihood as lk
+        from misti_tpu_torch.engine import sweep_fused as sf
+
+        self.mods, self.seen = (lk, sf), []
+
+    def __enter__(self):
+        for m in self.mods:
+            orig = m.post_split_fit
+
+            def rec(*a, _orig=orig, **kw):
+                if not self.seen:
+                    self.seen.append((a, kw))
+                return _orig(*a, **kw)
+
+            m.post_split_fit, m._ab_orig = rec, orig
+        return self
+
+    def __exit__(self, *exc):
+        for m in self.mods:
+            m.post_split_fit = m._ab_orig
 
 
 def measure(device: str, rows: int) -> dict:
@@ -66,8 +134,27 @@ def measure(device: str, rows: int) -> dict:
         except ImportError:
             pass
 
+    from misti_tpu_torch.bench import bench_params, bench_spec
+    from misti_tpu_torch.engine import likelihood as lk
+
     dev = torch.device(device)
     cuda = dev.type == "cuda"
+    digests = {}
+
+    def post_fit_digests(name, captured):
+        (nc, lh, T), kw = captured
+        for cpfit in (False, True):
+            digests[f"{name}, fit as {'cpfit' if cpfit else 'ect'}"] = digest(
+                lk.post_split_fit(nc, lh, T, cpfit=cpfit))
+
+    for B, per_lane, n in PF_CASES:
+        post_fit_digests(f"phase2 B={B} n={n} {'per-lane' if per_lane else 'shared'}",
+                         (post_fit_inputs(torch, dev, B, n, per_lane, B), {}))
+    for mode in ("", "ect"):
+        lik = build_likelihood(bench_spec(mode), device=dev, dtype=torch.float64)
+        with Capture() as cap:
+            lik.llh_batch(bench_params(4096, dev, torch.float64))
+        post_fit_digests(f"bench {mode or 'cpfit'}", cap.seen[0])
     sync = torch.cuda.synchronize if cuda else (lambda: None)
     inp = io_psmc.read_psmc(f"{FIX}/sweep1.psmc", f"{FIX}/sweep2.psmc", 0, -1)
     data = bootstrap.make_bootstrap_data(io_jsfs.read_jafs(f"{FIX}/sweep.jsfs"), rows, seed=0)
@@ -87,8 +174,11 @@ def measure(device: str, rows: int) -> dict:
         ev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
         busy = sum(e.self_device_time_total for e in ev) / 1e3  # ms
         top = sorted(ev, key=lambda e: e.self_device_time_total, reverse=True)[:5]
+        pf = [e for e in ev if "post_fit" in e.key]
         return {"wall_ms": wall * 1e3, "launches": sum(e.count for e in ev),
                 "device_ms": busy, "busy_share": busy / (wall * 1e3),
+                "post_fit_device_ms": sum(e.self_device_time_total for e in pf) / 1e3,
+                "post_fit_launches_seen": sum(e.count for e in pf),
                 "top_kernels_ms": {e.key[:80]: [e.self_device_time_total / 1e3, e.count]
                                    for e in top}}
 
@@ -120,6 +210,9 @@ def measure(device: str, rows: int) -> dict:
         out[f"{mode}_iteration_ms"] = (walls[2] - walls[1]) / 3 * 1e3
         out[f"{mode}_call"] = profiled(lambda: fs.llh(*lanes))
         out[f"{mode}_call"]["lanes"] = W * P
+        with Capture() as cap:
+            fs.llh(*lanes)
+        post_fit_digests(f"sweep {mode}", cap.seen[0])
 
     sfs = list(io_jsfs.read_jafs(f"{FIX}/sweep.jsfs").jafs[0])
     for mode, cpfit in (("cpfit", True), ("ect", False)):
@@ -151,6 +244,10 @@ def measure(device: str, rows: int) -> dict:
             "hand_kernel_launches_per_call": {k: (c.launches - before[k]) / calls[0]
                                               for k, c in counters.items()},
             "call": profiled(lambda: inner(points))}
+        with Capture() as cap:
+            inner(points)
+        post_fit_digests(f"single fit {mode}", cap.seen[0])
+    out["post_fit_digests"] = digests
     return out
 
 
@@ -191,6 +288,13 @@ def main(argv=None) -> int:
         rec = json.loads(proc.stdout.strip().splitlines()[-1])
         rec = {"run": i, "tree": tree, "process_wall_s": time.perf_counter() - t, **rec}
         lines.append(json.dumps(rec))
+        print(lines[-1], flush=True)
+    runs = [json.loads(ln) for ln in lines[1:]]
+    if len(runs) > 1:
+        same = {k: len({r["post_fit_digests"][k] for r in runs}) == 1
+                for k in runs[0]["post_fit_digests"]}
+        lines.append(json.dumps({"post_fit_digests_equal": all(same.values()),
+                                 "cases": same}))
         print(lines[-1], flush=True)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

@@ -9,10 +9,17 @@ mid-table and at the end, and a NaN lane; with at most 6 post-split rows
 the ECT Jacobi rounds are exact by induction, so the plain version equals
 upstream's sequential recursion (`scipy.optimize.brentq` on the reference's
 ECT with its raw-rate guard, the carry updated row by row); the work meter;
-the kernel's wrapper refusing float32 and CPU operands.  The CUDA kernel
-itself, built in float64 only, runs only on a card: those tests skip here.
+the kernel's wrapper refusing float32 and CPU operands.  The kernel's solve
+with G threads (`fit_single_pop_group`: the parallel expansion and the
+bisection tree) in torch ops gives `fit_single_pop`'s bits at every G, and
+the JAX package's roots at its parity tolerance (that one test imports
+jax); `threads_per_solve` at the paths' widths; `warp_branch_mix` on
+sweep-like and bench-like tables.  The CUDA kernel itself, built in float64
+only, runs only on a card: those tests skip here (on a card, run this file
+with ``--noconftest -k 'card or refuses'``).
 """
 
+import functools
 import math
 
 import numpy as np
@@ -20,6 +27,7 @@ import pytest
 import torch
 from scipy.optimize import brentq
 
+from misti_tpu_torch.engine import likelihood as lk
 from misti_tpu_torch.engine.likelihood import (
     _POST_OUTERS,
     post_split_fit,
@@ -102,8 +110,10 @@ def post_inputs(B, n, L, *, seed=0, device="cpu", dtype=torch.float64):
 
 
 def _same(a, b):
-    """Bitwise equal values, NaN where NaN."""
-    return torch.equal(a.isnan(), b.isnan()) and torch.equal(a.nan_to_num(), b.nan_to_num())
+    """Bitwise equal values (-0 is not +0), NaN where NaN."""
+    nan = a.isnan()
+    return (a.shape == b.shape and torch.equal(nan, b.isnan())
+            and torch.equal(a.view(torch.int64)[~nan], b.view(torch.int64)[~nan]))
 
 
 CASES = [(7, 12, 1), (9, 12, 9), (5, 3, 5), (3, 0, 1)]  # (B, n, L)
@@ -207,33 +217,57 @@ def test_expansion_meter_counts_the_steps_that_move_the_bound():
     assert int(moves[0][1]) == math.ceil(math.log2(float(got[1]) / hi))
 
 
-def test_work_meter():
+def test_work_meter(monkeypatch):
     """Operations the function needs: none for a T == 0 row; cpfit a closed
-    form per row; ECT per round and solved row the prefix, the bracket's
-    set-up, 60 halvings and the expansion tests that its own solve needs
-    (one more than the steps that moved hi).  Bytes: each operand read
-    once, each output written once."""
+    form per row; ECT (`ect_work`, whose rates are the plain version's bit
+    for bit) the prefix of every live row of every round, and for each
+    solve whose prefix changed (every live row in round 1, never a first
+    row after it) its weights, the bracket's set-up, the expansion tests
+    its own solve needs (one more than the steps that moved hi) and its
+    halvings up to the bracket's fixed point: that many halvings give the
+    60 halvings' root bit for bit.  Bytes: each operand read once, each
+    output written once."""
     nc, lh, T = post_inputs(6, 12, 6, seed=3)
-    live = int((T != 0).sum())
-    assert kpf.post_fit_ops(nc, lh, T, cpfit=True) == live * kpf.CPFIT_ROW_OPS
+    live = T != 0
+    assert kpf.post_fit_ops(nc, lh, T, cpfit=True) == int(live.sum()) * kpf.CPFIT_ROW_OPS
+    work = kpf.ect_work(nc, lh, T)
+    assert _same(work["lc"], post_split_fit_plain(nc, lh, T, cpfit=False)[0])
+    solved = torch.stack(work["solved"])
+    assert solved.shape == (_POST_OUTERS, 6, 12) and torch.equal(solved[0], live)
+    assert not solved[1:, :, 0].any() and solved[1].any() and not (solved & ~live).any()
+    assert int(solved[1:].sum()) < int(solved[1:].numel()) // 2
     moves = []
     post_split_fit_plain(nc, lh, T, cpfit=False, moves=moves)
-    assert len(moves) == _POST_OUTERS
-    keep = T != 0
-    tests = sum(int(torch.clamp(m + 1, max=40)[keep].sum()) for m in moves)
-    per_solve = kpf.PREFIX_OPS + kpf.SETUP_OPS + 60 * (kpf.STEP_OPS + 2) + 2
-    assert kpf.post_fit_ops(nc, lh, T, cpfit=False) == (
-        live * _POST_OUTERS * per_solve + tests * kpf.STEP_OPS + 6 * 26)
+    tests = [torch.clamp(m + 1, max=40) for m in moves]
+    assert len(tests) == _POST_OUTERS
+    assert all(torch.equal(a, b) for a, b in zip(work["tests"], tests))
+    want = int(live.sum()) * _POST_OUTERS * kpf.PREFIX_OPS + 6 * 26
+    for s_, t_, h_ in zip(work["solved"], work["tests"], work["halvings"]):
+        want += (int(s_.sum()) * (kpf.WEIGHT_OPS + kpf.SETUP_OPS + 2)
+                 + int(t_[s_].sum()) * kpf.STEP_OPS + int(h_[s_].sum()) * kpf.HALVING_OPS)
+    assert kpf.post_fit_ops(nc, lh, T, cpfit=False) == want
     shared = post_inputs(6, 12, 1, seed=3)
     assert kpf.post_fit_ops(*shared, cpfit=True) == 6 * int((shared[2] != 0).sum()) * (
         kpf.CPFIT_ROW_OPS)
     assert kpf.post_fit_bytes(6, 1, 12) == (12 + 36 + 144 + 12) * 8
 
+    lh1, T1, w1 = _solve_cases()
+    halvings = []
+    root = kc.fit_single_pop(lh1, T1, w1, halvings=halvings)
+    counts = halvings[0]
+    assert int(counts.min()) >= 1 and int(counts.max()) <= 60 and int(counts.min()) < 60
+    for k in sorted(set(counts.tolist())):
+        monkeypatch.setattr(kc, "_BISECT_ITERS", k)
+        at = counts == k
+        assert _same(kc.fit_single_pop(lh1, T1, w1)[at], root[at]), k
+
 
 def test_kernel_wrapper_refuses_float32_and_cpu_operands():
     """The kernel is built in float64 only and has no CPU form: float32
     operands raise TypeError, float64 CPU operands ValueError, and neither
-    counts a launch."""
+    counts a launch; its one build job is csrc/post_fit.cu in float64."""
+    assert [(j[1].name, j[2]) for j in kpf.build_jobs(force=True)] == [("post_fit.cu",
+                                                                         torch.float64)]
     before = kpf.post_fit.launches
     nc, lh, T = post_inputs(5, 8, 1, dtype=torch.float32)
     with pytest.raises(TypeError):
@@ -243,20 +277,192 @@ def test_kernel_wrapper_refuses_float32_and_cpu_operands():
     assert kpf.post_fit.launches == before
 
 
+# --- the kernel's solve with G threads, in torch ops -----------------------
+
+
+def _solve_cases():
+    """(lh (N, 2), T (N,), w (N, 2)) of single solves: rates straddling 100 on
+    short intervals (the guard's upper branch), two roots, no root on either
+    branch (a negative rate), x = lam T around 1/4, expansions that move hi
+    (a weight on a rate far below the root), a NaN rate and a NaN weight."""
+    rng = np.random.default_rng(17)
+    parts = [
+        (rng.uniform(60.0, 300.0, (64, 2)), rng.uniform(0.002, 0.1, 64),
+         rng.uniform(0.1, 1.0, (64, 2))),
+        (rng.uniform(30.0, 100.0, (64, 2)), rng.uniform(0.002, 0.02, 64),
+         rng.uniform(0.1, 1.0, (64, 2))),
+        (np.array([[1.558, -0.0207], [0.0027, -10.96], [1240.8, -6109.3]]),
+         np.array([0.1798, 7.662, 0.5873]), np.array([[1.7e-7, 0.083], [0.0022, 0.89],
+                                                      [0.51, 0.53]])),
+        (rng.uniform(0.5, 3.0, (32, 2)), 0.25 / rng.uniform(0.6, 3.2, 32),
+         rng.uniform(0.1, 1.0, (32, 2))),
+        (np.array([[1.0, 1.0], [0.5, 60.0], [0.001, 90.0], [1e-9, 99.0], [np.nan, 2.0],
+                   [1.0, 2.0]]), np.array([0.5, 0.02, 0.3, 1.0, 0.2, 0.3]),
+         np.array([[1.0, 0.0], [1e-6, 1.0], [1e-12, 1.0], [1e-30, 1.0], [0.5, 0.5],
+                   [np.nan, 1.0]])),
+    ]
+    return tuple(torch.tensor(np.concatenate(a), dtype=torch.float64) for a in zip(*parts))
+
+
+@pytest.mark.parametrize("levels", [1, 2, 3, 4, 5])
+def test_group_solve_gives_the_serial_solves_bits(levels, monkeypatch):
+    """`fit_single_pop_group` at G = 2^levels, the kernel's parallel
+    expansion and bisection tree in torch ops, equals `fit_single_pop`
+    bitwise: on single solves (`_solve_cases`, some with hi moving) and
+    through the ECT rounds of `post_split_fit_plain` on `post_inputs` (T == 0
+    rows, rates straddling 100, x around 1/4, a NaN lane; shared and per-lane
+    tables)."""
+    G = 1 << levels
+    lh, T, w = _solve_cases()
+    moves = []
+    want = kc.fit_single_pop(lh, T, w, moves=moves)
+    assert int(moves[0].max()) >= 1 and bool(want.isnan().any())
+    assert _same(kpf.fit_single_pop_group(lh, T, w, G), want)
+    for case in [(7, 12, 1), (9, 12, 9), (9, 40, 9)]:
+        args = post_inputs(*case, seed=sum(case))
+        plain = post_split_fit_plain(*args, cpfit=False)
+        monkeypatch.setattr(lk, "fit_single_pop",
+                            functools.partial(kpf.fit_single_pop_group, group=G))
+        got = post_split_fit_plain(*args, cpfit=False)
+        monkeypatch.undo()
+        assert all(_same(a, b) for a, b in zip(got, plain)), case
+
+
+@pytest.mark.parametrize("group", kpf.GROUPS)
+def test_parallel_expansion_is_the_serial_loop(group):
+    """`expand_plain` with G threads ends where the serial loop of 40
+    capped doublings ends, on a decreasing g whose root lies 0 to 2^45
+    times above hi: caps finite, infinite and NaN, hi NaN, negative, zero
+    and at the cap."""
+    rng = np.random.default_rng(group)
+    hi = rng.uniform(0.1, 10.0, 256)
+    root = hi * 2.0 ** rng.uniform(-1.0, 45.0, 256)
+    cap = np.where(rng.uniform(size=256) < 0.5, np.inf, hi * 2.0 ** rng.uniform(0, 50, 256))
+    hi[:4], cap[4:6], hi[6] = [np.nan, -3.0, 0.0, 5.0], np.nan, cap[6]
+    hi, root, cap = (torch.tensor(a, dtype=torch.float64) for a in (hi, root, cap))
+    g = lambda lam: root - lam  # noqa: E731
+    want = hi
+    for _ in range(40):
+        want = torch.where(g(want) >= 0, torch.minimum(want * 2.0, cap), want)
+    got = kpf.expand_plain(g, hi, cap, group)
+    assert _same(got, want)
+    assert int((want > hi).sum()) > 100
+
+
+@pytest.mark.parametrize("group", kpf.GROUPS)
+def test_group_solve_matches_jax(group):
+    """The group solve against the JAX package's `fit_single_pop` on
+    tests/test_torch_correction_fused.py's parity inputs (rates below 100),
+    at that test's JAX tolerance, rtol 1e-8."""
+    jax = pytest.importorskip("jax")
+    jax.config.update("jax_enable_x64", True)
+    from misti_tpu.kernels import correction as jkc
+
+    rng = np.random.default_rng(21)
+    lh = rng.uniform(0.3, 5.0, (40, 2))
+    T = rng.uniform(0.01, 0.5, 40)
+    w = rng.uniform(0.05, 1.0, (40, 2))
+    want = np.asarray(jax.jit(jax.vmap(jkc.fit_single_pop))(lh, T, w))
+    got = kpf.fit_single_pop_group(*(torch.tensor(a) for a in (lh, T, w)), group).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-8)
+
+
+def test_threads_per_solve_at_the_paths_widths():
+    """G = 1 at the sweep's (4848 x 34), the bench's (4096 x 35) and a rank's
+    (2424 x 34) widths; 32 at the single fit's 6-7 lanes and at a
+    compaction stage's few dozen; in between at a sub-batch of 960; never
+    past the resident threads (an H100's by default, else the card's) but
+    at G = 1; and every layout holds its lanes' intervals in at most 8
+    blocks of at most 18 warps (G = 1) or 32."""
+    tps = kpf.threads_per_solve
+    assert [tps(6, 30, 6 * 30 * 4), tps(6, 30, 6 * 30 * 4 - 1), tps(960, 34, 10 ** 7)] == [
+        4, 2, 32]
+    assert [tps(4848, 34), tps(4096, 35), tps(2424, 34)] == [1, 1, 1]
+    assert [tps(6, 30), tps(7, 35), tps(40, 34), tps(960, 34), tps(6, 200)] == [32, 32, 32, 4,
+                                                                                32]
+    for B in (1, 6, 40, 300, 960, 2424, 4096):
+        for n in (1, 12, 18, 19, 34, 144, 145, 256):
+            G = tps(B, n)
+            assert G == 1 or B * n * G <= kpf.RESIDENT_THREADS
+            assert 2 * G > 32 or B * n * 2 * G > kpf.RESIDENT_THREADS
+            lay = kpf.ect_layout(n, G)
+            assert 1 <= lay["C"] <= kpf.MAX_CLUSTER and lay["warps"] <= kpf.MAX_WARPS[G]
+            assert lay["C"] * lay["h"] >= n > (lay["C"] - 1) * lay["h"]
+            assert lay["S"] * G * lay["K"] == 32
+    assert kpf.ect_layout(30, 32)["C"] == 1 and kpf.ect_layout(34, 1)["C"] == 2
+    for n, G in ((257, 1), (0, 1), (34, 3)):
+        with pytest.raises(ValueError):
+            kpf.ect_layout(n, G)
+
+
+def _sweep_like(splits=8, rows=200, n=34, seed=5):
+    """Per-lane post-split tables as the sweep builds them: lanes in runs of
+    ``rows`` sharing a split (split-major), each split's n_k = n - k rows of
+    PSMC-like lengths (growing 17% a row) and smooth rates, T == 0 padding
+    past them, each lane its own pre-split carry."""
+    rng = np.random.default_rng(seed)
+    T = np.zeros((splits, n))
+    lh = np.ones((splits, n, 2))
+    for k in range(splits):
+        T[k, :n - k] = 0.01 * 1.17 ** np.arange(k, n)
+        lh[k] = 1.0 + 0.5 * np.sin(np.arange(n)[:, None] / 4.0 + [0.0, 1.0] + k / 3.0)
+    idx = np.repeat(np.arange(splits), rows)
+    nc = -rng.uniform(0.5, 2.5, (splits * rows, 2))
+    return tuple(torch.tensor(a) for a in (nc, lh[idx], T[idx]))
+
+
+def test_warp_branch_mix():
+    """Lane-major warps mix the residual's two forms, and T == 0 rows with
+    live ones, in fewer warps than the PR 9 mapping on sweep-like per-lane
+    tables; neither the old nor the lane-major mapping mixes any on the
+    bench's shared tables (every row on the series form, no T == 0 row)."""
+    args = _sweep_like()
+    old = kpf.warp_branch_mix(*args, layout="old")
+    new = kpf.warp_branch_mix(*args, layout="lane")
+    assert 0.2 < old["series_share"] < 0.8 and old["zero_rows"] == 200 * 28
+    assert new["mixed_forms"] < old["mixed_forms"] and new["mixed_zero"] < old["mixed_zero"]
+    assert new["mixed_forms"] <= 0.05 and new["mixed_zero"] <= 0.05
+    from misti_tpu_torch import build_likelihood
+    from misti_tpu_torch.bench import bench_params, bench_spec
+
+    seen = []
+
+    def rec(*a, **kw):
+        seen.append(a)
+        raise StopIteration
+
+    lik = build_likelihood(bench_spec("ect"), device="cpu")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(lk, "post_split_fit", rec)
+        with pytest.raises(StopIteration):
+            lik.llh_batch(bench_params(64, "cpu", torch.float64))
+    nc, lh, T = seen[0]
+    assert T.shape[0] == 1 and bool((T != 0).all())
+    for layout in ("old", "lane"):
+        for G in (1, 32) if layout == "lane" else (1,):
+            mix = kpf.warp_branch_mix(nc, lh, T, layout=layout, group=G)
+            assert mix["series_share"] == 1.0
+            assert mix["mixed_forms"] == mix["mixed_zero"] == 0.0
+
+
 # --- on the card ------------------------------------------------------------
 
 # the paths' widths: bench 4096 (shared tables, n = 35), sweep stage 1 4848
 # (per lane, n = 33), single fit 6 (shared, n = 29), two-band 5656 (per lane)
-CARD_WIDTHS = [(4096, 35, False), (4848, 33, True), (6, 29, False), (5656, 33, True)]
+# and a batch past MAX_WARPS * MAX_CLUSTER intervals (two intervals a warp)
+CARD_WIDTHS = [(4096, 35, False), (4848, 33, True), (6, 29, False), (5656, 33, True),
+               (45, 200, True)]
 SUB_WIDTHS = (1, 6, 42, 960)
 
 
 @pytest.mark.parametrize("cpfit", [False, True], ids=["ect", "cpfit"])
 @pytest.mark.parametrize("width", CARD_WIDTHS, ids=[f"B{w[0]}" for w in CARD_WIDTHS])
 def test_kernel_matches_plain_on_card(cuda, width, cpfit):
-    """One launch against the plain version on the card: rtol 1e-6 / atol
-    1e-9 and equal NaN masks; the first 1 / 6 / 42 / 960 lanes alone
-    bitwise as in the batch; the dispatcher launches the kernel once."""
+    """One launch against the plain version on the card, at the G that
+    `threads_per_solve` picks and at every other G the layout takes: rtol
+    1e-6 / atol 1e-9 and equal NaN masks (cpfit bitwise); every G bitwise
+    equal to G = 1; the first 1 / 6 / 42 / 960 lanes alone bitwise as in
+    the batch; the dispatcher launches the kernel once."""
     B, n, per_lane = width
     nc, lh, T = post_inputs(B, n, B if per_lane else 1, seed=B, device=cuda)
     before = kpf.post_fit.launches
@@ -267,10 +473,27 @@ def test_kernel_matches_plain_on_card(cuda, width, cpfit):
     for g, w in zip(got, want):
         assert torch.equal(g.isnan(), w.isnan())
         torch.testing.assert_close(g, w, rtol=1e-6, atol=1e-9, equal_nan=True)
+        assert not cpfit or _same(g, w)
+    one = kpf.post_fit(nc, lh, T, cpfit=cpfit, group=1)
+    for G in kpf.GROUPS:
+        assert all(_same(a, b) for a, b in zip(kpf.post_fit(nc, lh, T, cpfit=cpfit, group=G),
+                                               one)), f"G = {G}"
+    assert all(_same(a, b) for a, b in zip(got, one))
     for k in (k for k in SUB_WIDTHS if k < B):
         part = kpf.post_fit(nc[:k], lh[:k] if per_lane else lh, T[:k] if per_lane else T,
                             cpfit=cpfit)
         assert all(_same(a, b[:k]) for a, b in zip(part, got))
+
+
+def test_resident_threads_on_card(cuda):
+    """G follows the card at hand: its SM count, and the threads an SM keeps
+    resident of the G > 1 kernels by the card's occupancy query; the
+    launch shape reports both."""
+    sms, resident = kpf.sms_and_resident(torch.cuda.current_device())
+    assert sms == torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert 0 < resident <= sms * 2048 and resident % 32 == 0
+    shape = kpf.launch_shape(6, 30, cpfit=False)
+    assert shape["sms"] == sms and shape["group"] == kpf.threads_per_solve(6, 30, resident)
 
 
 def test_kernel_refuses_float32_on_card(cuda):

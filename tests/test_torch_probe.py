@@ -1,6 +1,8 @@
 """misti_tpu_torch.probe on the CPU, at a toy size: the width probe's stage
 trace and op checks (every lane bitwise the same alone and in its batch, as
-the card needs).  On the card it runs at the north-star sweep's full width."""
+the card needs), and the mix probe's counts of how the post-split fit's
+solves split the kernel's warps.  On the card they run at the north-star
+sweep's full width."""
 
 import json
 
@@ -30,3 +32,23 @@ def test_width_probe_finds_no_batch_dependence_on_the_cpu(monkeypatch, tmp_path,
                    "_sum_in_order of 27 (B,7)", "post_split_fit", "correction kernel"):
             assert "error" not in ops[(mode, op)] and all(ops[(mode, op)]["bitwise"].values())
     assert (tmp_path / "w.txt").read_text().splitlines()[0] == "cpu"
+
+
+def test_mix_probe_counts_the_warps_and_the_skipped_work(monkeypatch, tmp_path, capsys):
+    """The sweep's first ECT call (1 replicate: 8 splits x 2 rows x 2
+    vertices = 32 lanes), the bench's (4096 lanes) and the single fit's:
+    lane-major warps mix the residual's forms in no more warps than the PR 9
+    mapping, none on the bench's series-only shared table; rounds 2-6
+    repeat some prefixes, and the bisection stops before its 60th halving
+    on average."""
+    monkeypatch.setattr(probe, "REPLICATES", 1)
+    assert probe.main(["mix", "--device", "cpu", "--out", str(tmp_path / "m.txt")]) == 0
+    rows = [json.loads(ln) for ln in capsys.readouterr().out.splitlines() if ln.startswith("{")]
+    assert [r["input"] for r in rows] == ["sweep, first ECT call", "bench, ECT",
+                                          "single fit, ECT"]
+    assert [r["lanes"] for r in rows] == [32, 4096, 2] and rows[1]["G"] == 1
+    for r in rows:
+        assert r["lane"]["mixed_forms"] <= r["old"]["mixed_forms"]
+        assert 0 < r["work"]["repeated_prefix_share"] < 1 and r["work"]["halvings_mean"] < 60
+    assert rows[1]["old"]["mixed_forms"] == rows[1]["lane"]["mixed_forms"] == 0.0
+    assert rows[0]["old"]["zero_rows"] > 0 and rows[0]["tables"] == "per lane"
