@@ -33,10 +33,13 @@ Phases, each fatal on failure:
   6. the sweep path: upstream's north-star bootstrap x split-time sweep
      (tests/fixtures/sweep*.psmc + sweep.jsfs, ``--splits 20 27 -bs 100
      -mi 1 4 ST 3 1 -uf``, bootstrap seed 0) through
-     ``misti_tpu_torch.engine.bootstrap.sweep`` in float32, cpfit with
-     ``--maxiter 256`` and ECT, each held against the JAX package's table of
-     the same command (scripts/sweep1band_r05_cap256.npz,
-     scripts/sweep_ect_r05.npz; the float64 judge in both modes), with the
+     ``misti_tpu_torch.engine.bootstrap.sweep`` in the run's default dtype
+     (float64), cpfit with ``--maxiter 256`` and ECT, each held against the
+     JAX package's float64 CPU table of the same command
+     (scripts/sweep1band_f64_cpu_cap256.npz, scripts/sweep_ect_f64_cpu.npz,
+     made by scripts/jax_f64_reference.py; its float32 TPU tables
+     scripts/sweep1band_r05_cap256.npz and sweep_ect_r05.npz compared on an
+     info line), with the
      kernels timed at the sweep's first-stage width, no cell left
      unconverged, that iteration's lanes bitwise the same alone, in
      sub-batches and in the whole batch, and a small staged-vs-uninterrupted
@@ -51,16 +54,19 @@ Phases, each fatal on failure:
      testmodel README oracle;
   8. the sharded sweep: phase 6's cpfit sweep through the sweep CLI as
      SHARDED_RANKS ranks of ``python -m torch.distributed.run`` on the one
-     card, held to phase 6's gates against the same table and compared with
+     card, in the default dtype, held to phase 6's gates against the same
+     table and compared with
      phase 6's one-process table (cells bitwise equal, max |dllh|, both
      walls, each rank's objective calls and kernel launches) on the spectra
      the ranks wrote, and the per-lane kernel at a rank's stage-1 width
      (404 cells x 6 = 2424 lanes) against its plain version;
   9. the --scenarios path: two scenarios of the 16-scenario matrix
      (MATRIX_SCENARIOS: two bands, and no migration) resident in one process
-     through ``sweep_many`` at full width, ``--maxiter`` MATRIX_MAXITER, with
-     the no-migration scenario's argmax histogram held to the JAX package's
-     table and the kernels at the two-band scenario's first-stage width.
+     through ``sweep_many`` at full width, ``--maxiter`` MATRIX_MAXITER, in
+     the default dtype, with the no-migration scenario's argmax histogram
+     held to the JAX package's float64 matrix reference
+     (MATRIX_jax_f64_cpu.json) and the kernels at the two-band scenario's
+     first-stage width.
 Every path requires each of its kernels (the correction sweep, ``row_matmul``,
 ``expm_action``, ``post_fit``) to have launched, the post-split fit exactly
 once per objective call, and prints their launches per objective call;
@@ -137,9 +143,16 @@ SHARDED_TIMEOUT_S = 420
 # phase 9: two scenarios of the matrix through sweep_many (two bands; none)
 MATRIX_SCENARIOS = ("pair3.mi2", "pair2.no.mig")
 MATRIX_MAXITER = 32
-SWEEP_RUNS = (  # (mode, spec flags, --maxiter, the JAX package's table)
-    ("cpfit", dict(cpfit=True), 256, "scripts/sweep1band_r05_cap256.npz"),
-    ("ect", dict(cpfit=False), 1000, "scripts/sweep_ect_r05.npz"),
+# the matrix's float64 reference (scripts/jax_f64_reference.py) and the
+# JAX package's float32 TPU table, which phase 9 only prints
+MATRIX_REFERENCE = "MATRIX_jax_f64_cpu.json"
+MATRIX_OLD_TABLE = "MATRIXBENCH_r05.json"
+SWEEP_RUNS = (  # (mode, spec flags, --maxiter, the JAX package's float64 CPU table,
+    #              its float32 TPU table of the same command: printed, not gated)
+    ("cpfit", dict(cpfit=True), 256, "scripts/sweep1band_f64_cpu_cap256.npz",
+     "scripts/sweep1band_r05_cap256.npz"),
+    ("ect", dict(cpfit=False), 1000, "scripts/sweep_ect_f64_cpu.npz",
+     "scripts/sweep_ect_r05.npz"),
 )
 # the single-fit path of phase 7: tests/test_cli.py's commands on the synth
 # fixtures (after the three input files; default platform, i.e. the card),
@@ -477,16 +490,14 @@ def expm_action_record(ea, torch, name, captured, launches):
     got, want = run(), plain()
     errs = [check_close(f"{name} {o}", g, w, rtol, atol)
             for o, g, w in zip(("E p0", "N1 p0", "projection"), got, want) if g is not None]
-    bitwise = all(torch.equal(g.nan_to_num(), w.nan_to_num())
-                  for g, w in zip(got, want) if g is not None)
+    bitwise = all(same_bits(g, w) for g, w in zip(got, want) if g is not None)
     per_lane_t = t.numel() == B and B > 1
     for w in SUB_WIDTHS:
         if w < B:
             kw_w = dict(kw, catmask=cm[:w]) if cm is not None and cm.dim() == 2 else kw
             part = ea.expm_action(basis, coeffs[:w], norms, t[:w] if per_lane_t else t, p0[:w],
                                   **kw_w)
-            require(all(torch.equal(x.nan_to_num(), y[:w].nan_to_num())
-                        for x, y in zip(part, got) if x is not None),
+            require(all(same_bits(x, y[:w]) for x, y in zip(part, got) if x is not None),
                     f"{name}: the first {w} lanes differ from their rows of the {B}-lane batch")
     k_ms = cuda_ms(run, 20)
     p_ms = cuda_ms(plain, 3)
@@ -863,15 +874,13 @@ def phase_kernels(cf, rm, ea, torch, dev):
                 tag = f"expm_action {kname} B={B} {str(dtype)[6:]}"
                 errs = [check_close(f"{tag} {o}", g, w, rtol, atol)
                         for o, g, w in zip(("E p0", "N1 p0", "projection"), got, want)]
-                bitwise = all(torch.equal(g.nan_to_num(), w.nan_to_num())
-                              for g, w in zip(got, want))
+                bitwise = all(same_bits(g, w) for g, w in zip(got, want))
                 for w in SUB_WIDTHS:
                     if w < B:
                         part = ea.expm_action(K, coeffs[:w], norms, t[:w], p0[:w], jsfs=J,
                                               catmask=cm[:w])
                         n += 1
-                        require(all(torch.equal(x.nan_to_num(), y[:w].nan_to_num())
-                                    for x, y in zip(part, got)),
+                        require(all(same_bits(x, y[:w]) for x, y in zip(part, got)),
                                 f"{tag}: the first {w} lanes differ from the batch's")
                 log(f"kernel-vs-plain {tag}: max|d| {max(errs):.3e} (rtol {rtol:g} atol "
                     f"{atol:g}), NaN lanes {int(got[0].isnan().any(-1).sum())}, bitwise equal "
@@ -1125,25 +1134,42 @@ def _ci_of(bootstrap, llh, splits, data, times, scale):
     return bootstrap.split_time_confidence_interval(res, times, scale)
 
 
-def _hold_to_table(torch, dev, bootstrap, inp, data, name, flags, maxiter, ref, llh, params,
-                   converged, cpu_check=False):
-    """The north-star sweep's gates against the JAX package's table ``ref``:
-    the same replicate spectra, all llh finite, the same argmax histogram,
-    the CI within 0.01 generations and, on cells converged in both runs, in
-    float64 on the card, no fit worse than the table's by more than 5e-2
-    nats (cpfit and ECT).  ``cpu_check`` also holds the card's
-    float64 llh at the table's parameters to the CPU's (limit 1e-6).
-    Returns them as one phrase for the caller's log line."""
+def _sweep_llh64(torch, inp, data, flags, x, sel, device):
+    """The north-star sweep's float64 llh at parameters ``x`` (S, B, 1) on
+    the flat cells ``sel``."""
     from misti_tpu_torch.engine.sweep_fused import build_fused_sweep
 
+    fs64 = build_fused_sweep(inp.times, inp.lambdas, SWEEP_SPLITS, SWEEP_MI,
+                             sample_date=inp.sample_date_discr, unfolded=True, smooth=True,
+                             device=device, dtype=torch.float64, **flags)
+    st_all = np.repeat(np.arange(len(SWEEP_SPLITS)), data.shape[0])
+    x = np.asarray(x, float).reshape(-1, 1)[sel]
+    d64 = np.tile(data, (len(SWEEP_SPLITS), 1))[sel]
+    return fs64.llh(st_all[sel], x, d64).cpu().numpy()
+
+
+def _hist_of(splits, llh) -> dict:
+    splits = np.asarray(splits)
+    return {float(k): int(v) for k, v in zip(*np.unique(splits[np.asarray(llh).argmax(0)],
+                                                          return_counts=True))}
+
+
+def _hold_to_table(torch, dev, bootstrap, inp, data, name, flags, maxiter, ref, llh, params,
+                   converged, cpu_check=False):
+    """The north-star sweep's gates against the JAX package's float64 CPU
+    table ``ref`` (scripts/jax_f64_reference.py): the same replicate
+    spectra, all llh finite, the same argmax histogram, the CI within 0.01
+    generations and, on cells converged in both runs, in float64 on the
+    card, no fit worse than the table's by more than 5e-2 nats (cpfit and
+    ECT).  ``cpu_check`` also holds the card's float64 llh at the table's
+    parameters to the CPU's (limit 1e-6).  Printed, not gated: the card's
+    float64 llh at the table's parameters against the table's own llh, and
+    the share of cells whose llh is within 1e-6 nats of the table's.
+    Returns them as one phrase for the caller's log line."""
     require(np.array_equal(data, ref["data"]), f"{name}: replicate spectra differ from the table")
     require(np.isfinite(llh).all(), f"{name}: non-finite llh")
     splits = np.asarray(SWEEP_SPLITS)
-    hist = dict(zip(*np.unique(splits[llh.argmax(0)], return_counts=True)))
-    hist_ref = dict(zip(*np.unique(ref["split_times"][ref["llh"].argmax(0)],
-                                   return_counts=True)))
-    hist = {float(k): int(v) for k, v in hist.items()}
-    hist_ref = {float(k): int(v) for k, v in hist_ref.items()}
+    hist, hist_ref = _hist_of(splits, llh), _hist_of(ref["split_times"], ref["llh"])
     require(hist == hist_ref, f"{name}: argmax histogram {hist} != {hist_ref}")
     ci = _ci_of(bootstrap, llh, splits, data, inp.times, inp.scale_time)
     ci_ref = _ci_of(bootstrap, ref["llh"].astype(float), ref["split_times"], data,
@@ -1151,40 +1177,28 @@ def _hold_to_table(torch, dev, bootstrap, inp, data, name, flags, maxiter, ref, 
     d_ci = max(abs(ci["mean"] - ci_ref["mean"]),
                *(abs(a - b) for a, b in zip(ci["ci"], ci_ref["ci"])))
     require(d_ci <= 0.01, f"{name}: CI off by {d_ci} generations")
-    conv_ref = ref["nfev"] < 2 + 6 * maxiter  # one parameter: 2 + 6 per iteration
+    conv_ref = ref["converged"]
     both = converged & conv_ref
     require(both.any(), f"{name}: no cell converged in both runs")
-    dllh = np.abs(llh.astype(float) - ref["llh"].astype(float))[both]
-    # Both tables hold the JAX package's float32 llh values, each a
-    # difference of terms ~1e5-1e6: the table's own values sit up to ~1
-    # nat off the float64 likelihood at its own parameters.  So the two
-    # optima are compared in float64 on the card: the llh of this run's
-    # fit against that of the table's fit, on cells converged in both.
-    # The card's float64 path is tied to the JAX package through the
-    # port's CPU path (tests/test_torch_sweep.py): at the table's own
-    # parameters the two must agree.
+    dllh = np.abs(llh.astype(float) - ref["llh"].astype(float))
+    # The two optima are compared in float64 on the card: the llh of this
+    # run's fit against that of the table's fit, on cells converged in both.
+    # The card's float64 path is tied to the JAX package through the port's
+    # CPU path (tests/test_torch_sweep.py): at the table's own parameters
+    # the two must agree.
     sel = np.flatnonzero(both.ravel())
     n_rows = data.shape[0]
-    st_all = np.repeat(np.arange(len(SWEEP_SPLITS)), n_rows)
-
-    def llh64(x, device):
-        fs64 = build_fused_sweep(inp.times, inp.lambdas, SWEEP_SPLITS, SWEEP_MI,
-                                 sample_date=inp.sample_date_discr, unfolded=True,
-                                 smooth=True, device=device, dtype=torch.float64, **flags)
-        x = np.asarray(x, float).reshape(-1, 1)[sel]
-        d64 = np.tile(data, (len(SWEEP_SPLITS), 1))[sel]
-        return fs64.llh(st_all[sel], x, d64).cpu().numpy()
-
-    ref64 = llh64(ref["params"], dev)
+    ref64 = _sweep_llh64(torch, inp, data, flags, ref["params"], sel, dev)
     if cpu_check:
         t_cpu = time.perf_counter()
-        ref64_cpu = llh64(ref["params"], "cpu")
+        ref64_cpu = _sweep_llh64(torch, inp, data, flags, ref["params"], sel, "cpu")
         t_cpu = time.perf_counter() - t_cpu
         d_cpu = float(np.abs(ref64 - ref64_cpu).max())
         log(f"{name}: float64 llh at the table's parameters on {sel.size} cells, card vs "
             f"CPU: max |dllh| {d_cpu:.3e} (limit 1e-6; CPU {t_cpu:.1f} s)")
         require(d_cpu <= 1e-6, f"{name}: card and CPU float64 llh differ by {d_cpu:.3e}")
-    gain64 = llh64(params, dev) - ref64  # > 0: this run's fit is better
+    d_jax = np.abs(ref64 - ref["llh"].ravel()[sel])
+    gain64 = _sweep_llh64(torch, inp, data, flags, params, sel, dev) - ref64  # > 0: ours better
     worst = [dict(split=float(SWEEP_SPLITS[c // n_rows]), row=int(c % n_rows),
                   params=float(params.ravel()[c]),
                   table_params=float(ref["params"].ravel()[c]),
@@ -1199,21 +1213,45 @@ def _hold_to_table(torch, dev, bootstrap, inp, data, name, flags, maxiter, ref, 
         f"argmax {hist} (table {hist_ref}), split mean {ci['mean']:.6f} gens CI "
         f"[{ci['ci'][0]:.6f}, {ci['ci'][1]:.6f}] (table {ci_ref['mean']:.6f} "
         f"[{ci_ref['ci'][0]:.6f}, {ci_ref['ci'][1]:.6f}]), unconverged "
-        f"{int((~converged).sum())} (table {int((~conv_ref).sum())}), |dllh| on "
-        f"{int(both.sum())} cells converged in both: median {np.median(dllh):.3e} max "
-        f"{dllh.max():.3e} (within 5e-2: {bool(dllh.max() <= 5e-2)}), float64 llh of this fit "
-        f"minus the table's: median {np.median(gain64):.3e} min {gain64.min():.3e} max "
-        f"{gain64.max():.3e}")
+        f"{int((~converged).sum())} (table {int((~conv_ref).sum())}), cells whose llh is "
+        f"within 1e-6 of the table's {float(np.mean(dllh <= 1e-6)):.4f}, |dllh| on "
+        f"{int(both.sum())} cells converged in both: median {np.median(dllh[both]):.3e} max "
+        f"{dllh[both].max():.3e}, the card's float64 llh at the table's parameters minus the "
+        f"table's llh: max |d| {d_jax.max():.3e}, float64 llh of this fit minus the table's: "
+        f"median {np.median(gain64):.3e} min {gain64.min():.3e} max {gain64.max():.3e}")
+
+
+def _print_old_table(torch, dev, bootstrap, inp, data, name, flags, maxiter, old, llh, params,
+                     converged):
+    """An info line: this run against the JAX package's float32 TPU table
+    of the same command (its histogram, CI, and this fit's float64 llh minus
+    that of the table's fit on the cells converged in both).  Not gated."""
+    splits = np.asarray(SWEEP_SPLITS)
+    ci = _ci_of(bootstrap, llh, splits, data, inp.times, inp.scale_time)
+    ci_old = _ci_of(bootstrap, old["llh"].astype(float), old["split_times"], data, old["times"],
+                    float(old["scale_time"]))
+    conv_old = old["nfev"] < 2 + 6 * maxiter  # no flags there; one parameter: 2 + 6 per iteration
+    sel = np.flatnonzero((converged & conv_old).ravel())
+    gain = (_sweep_llh64(torch, inp, data, flags, params, sel, dev)
+            - _sweep_llh64(torch, inp, data, flags, old["params"], sel, dev))
+    log(f"{name}: against the JAX package's float32 TPU table (info, not gated): argmax "
+        f"{_hist_of(splits, llh)} (TPU table {_hist_of(old['split_times'], old['llh'])}), CI "
+        f"[{ci['ci'][0]:.6f}, {ci['ci'][1]:.6f}] (TPU table [{ci_old['ci'][0]:.6f}, "
+        f"{ci_old['ci'][1]:.6f}]), float64 llh of this fit minus the TPU table's fit on "
+        f"{sel.size} cells: min {gain.min():.3e} median {np.median(gain):.3e} max "
+        f"{gain.max():.3e}")
 
 
 def phase_sweep(cf, rm, ea, torch, dev):
-    """The north-star bootstrap x split-time sweep on the card (float32
-    parameters), cpfit (--maxiter 256) and ECT, each against the JAX
-    package's table of the same command, with no cell left unconverged; the
+    """The north-star bootstrap x split-time sweep on the card (the run's
+    default dtype, float64), cpfit (--maxiter 256) and ECT, each against the
+    JAX package's float64 CPU table of the same command, with no cell left
+    unconverged; the
     per-lane kernel, row_matmul and expm_action (both bases) at the first
     stage's width; each lane of the first iteration bitwise the same alone,
     in sub-batches and in the whole batch; a small staged-vs-uninterrupted
     ECT sweep, bitwise.  Returns the kernel records."""
+    from misti_tpu_torch.config import resolve_dtype
     from misti_tpu_torch.engine import bootstrap
     from misti_tpu_torch.engine.sweep_fused import build_fused_sweep
     from misti_tpu_torch.io import jsfs as io_jsfs
@@ -1225,15 +1263,15 @@ def phase_sweep(cf, rm, ea, torch, dev):
                             0, -1)
     data = bootstrap.make_bootstrap_data(io_jsfs.read_jafs(os.path.join(fix, "sweep.jsfs")),
                                          SWEEP_REPLICATES, seed=0)
-    common = dict(tol=1e-4, device=dev, dtype=torch.float32,
-                  sample_date=inp.sample_date_discr, unfolded=True, smooth=True, correct=True)
+    dt = resolve_dtype(dev)  # the run's default: what the sweeps below get
+    common = dict(tol=1e-4, device=dev, sample_date=inp.sample_date_discr, unfolded=True,
+                  smooth=True, correct=True)
     n_rows = data.shape[0]
     st_all = torch.arange(len(SWEEP_SPLITS), device=dev).repeat_interleave(n_rows)
-    data_all = torch.as_tensor(np.tile(data, (len(SWEEP_SPLITS), 1)), dtype=torch.float32,
-                               device=dev)
+    data_all = torch.as_tensor(np.tile(data, (len(SWEEP_SPLITS), 1)), dtype=dt, device=dev)
     records = []
     cpfit_run = None
-    for mode, flags, maxiter, table in SWEEP_RUNS:
+    for mode, flags, maxiter, table, old_table in SWEEP_RUNS:
         ref = np.load(os.path.join(HERE, table))
         buf = io.StringIO()
         cf.correction_sweep.launches = 0
@@ -1260,12 +1298,18 @@ def phase_sweep(cf, rm, ea, torch, dev):
         cells = res.llh.size
         require(launches == res.calls,
                 f"sweep {mode}: {launches} kernel launches for {res.calls} objective calls")
+        require(res.params.dtype == np.dtype(str(dt).removeprefix("torch.")),
+                f"sweep {mode}: parameters in {res.params.dtype}, not the default {dt}")
         g = _hold_to_table(torch, dev, bootstrap, inp, data, f"sweep {mode}", flags, maxiter,
                            ref, res.llh, res.params, res.converged, cpu_check=True)
+        _print_old_table(torch, dev, bootstrap, inp, data, f"sweep {mode}", flags, maxiter,
+                         np.load(os.path.join(HERE, old_table)), res.llh, res.params,
+                         res.converged)
         stuck = [dict(split=SWEEP_SPLITS[i], row=int(r), params=float(res.params[i, r, 0]),
                       llh=float(res.llh[i, r]), nfev=int(res.nfev[i, r]),
                       table_params=float(ref["params"][i, r, 0]),
-                      table_nfev=int(ref["nfev"][i, r]))
+                      table_llh=float(ref["llh"][i, r]), table_nfev=int(ref["nfev"][i, r]),
+                      table_converged=bool(ref["converged"][i, r]))
                  for i, r in zip(*np.nonzero(~res.converged))]
         log(f"sweep {mode}: cells unconverged at --maxiter {maxiter}: {json.dumps(stuck)}")
         require(not stuck, f"sweep {mode}: {len(stuck)} cells unconverged at --maxiter {maxiter}")
@@ -1281,9 +1325,8 @@ def phase_sweep(cf, rm, ea, torch, dev):
         # narrowest stage width of this run; the per-lane kernel at the first
         fs = build_fused_sweep(inp.times, inp.lambdas, SWEEP_SPLITS, SWEEP_MI,
                                sample_date=inp.sample_date_discr, unfolded=True, smooth=True,
-                               device=dev, dtype=torch.float32, **flags)
-        x0_all = torch.as_tensor(np.tile(fs.init_params, (cells, 1)), dtype=torch.float32,
-                                 device=dev)
+                               device=dev, **flags)
+        x0_all = torch.as_tensor(np.tile(fs.init_params, (cells, 1)), dtype=dt, device=dev)
         widths = [int(w) for w in re.findall(r"(\d+) cells resumed", buf.getvalue())] or [cells]
         narrow = min(widths)
         ms_wide, points = _nm_iteration_ms(torch, fs, torch.arange(cells, device=dev),
@@ -1346,7 +1389,7 @@ def phase_sweep(cf, rm, ea, torch, dev):
     require(np.array_equal(r1.converged, r2.converged), "staged sweep: converged flags differ")
     require(bitwise, f"staged sweep: not bitwise the uninterrupted sweep (max |dllh| {d:.3e})")
     log(f"sweep staged (caps 4 8 16 {STAGED_MAXITER}) vs uninterrupted, ECT, splits 24-25 x 8 "
-        f"rows, float32: bitwise {bitwise}, max |dllh| {d:.3e}, cells with different nfev "
+        f"rows, {dt}: bitwise {bitwise}, max |dllh| {d:.3e}, cells with different nfev "
         f"{int((r1.nfev != r2.nfev).sum())}, unconverged {int((~r1.converged).sum())}, "
         f"max nfev {int(r1.nfev.max())}")
     return records, cpfit_run
@@ -1596,10 +1639,11 @@ def _run_ranks(cmd, timeout):
 
 
 def phase_sharded_sweep(cf, rm, ea, torch, dev, cpfit_run):
-    """Phase 6's north-star cpfit sweep (--maxiter 256, float32, bootstrap
-    seed 0) through ``misti_tpu_torch.cli.sweep`` as SHARDED_RANKS ranks of
-    ``torch.distributed.run`` on the one card, held to phase 6's gates
-    against the same JAX table on the spectra the ranks fitted, and compared
+    """Phase 6's north-star cpfit sweep (--maxiter 256, the CLI's default
+    dtype, bootstrap seed 0) through ``misti_tpu_torch.cli.sweep`` as
+    SHARDED_RANKS ranks of ``torch.distributed.run`` on the one card, held to
+    phase 6's gates against the same JAX float64 table on the spectra the
+    ranks fitted, and compared
     with phase 6's one-process table; then the per-lane kernel at the width
     a rank launches it in stage 1 (808 / SHARDED_RANKS cells x 6 trial
     points), held against its plain version on every rank's block.  Returns
@@ -1613,7 +1657,7 @@ def phase_sharded_sweep(cf, rm, ea, torch, dev, cpfit_run):
                             0, -1)
     data = bootstrap.make_bootstrap_data(io_jsfs.read_jafs(os.path.join(fix, "sweep.jsfs")),
                                          SWEEP_REPLICATES, seed=0)
-    mode, flags, maxiter, table = SWEEP_RUNS[0]
+    mode, flags, maxiter, table, _ = SWEEP_RUNS[0]
     ref = np.load(os.path.join(HERE, table))
     with tempfile.TemporaryDirectory() as tmp:
         out = os.path.join(tmp, "sweep.npz")
@@ -1681,11 +1725,12 @@ def phase_scenarios(cf, rm, ea, torch, dev):
     (tests/fixtures/matrix/matrix.json; MATRIX_SCENARIOS) resident in one
     process through ``sweep_many``, at full width (808 cells each, bootstrap
     seed 0, ``-bs 100 -uf --nosmooth --cpfit``) and ``--maxiter``
-    MATRIX_MAXITER, float32: every llh finite, kernel launches equal to the
-    objective calls, the no-migration scenario's argmax histogram equal to
-    the JAX package's table (MATRIXBENCH_r05.json), and the per-lane kernel
-    at the two-band scenario's first-stage width against its plain version.
-    Returns that instance's record."""
+    MATRIX_MAXITER, the default dtype: every llh finite, kernel launches
+    equal to the objective calls, the no-migration scenario's argmax
+    histogram equal to the JAX package's float64 reference
+    (MATRIX_REFERENCE; its float32 TPU table MATRIX_OLD_TABLE printed), and
+    the per-lane kernel at the two-band scenario's first-stage width against
+    its plain version.  Returns that instance's record."""
     from misti_tpu_torch.engine import bootstrap
     from misti_tpu_torch.engine.sweep_fused import build_fused_sweep
     from misti_tpu_torch.io import jsfs as io_jsfs
@@ -1695,8 +1740,11 @@ def phase_scenarios(cf, rm, ea, torch, dev):
     mdir = os.path.join(HERE, "tests", "fixtures", "matrix")
     with open(os.path.join(mdir, "matrix.json")) as f:
         manifest = {e["name"]: e for e in json.load(f)}
-    with open(os.path.join(HERE, "MATRIXBENCH_r05.json")) as f:
-        table = {e["scenario"]: e for e in json.load(f)["per_scenario"] if "scenario" in e}
+    with open(os.path.join(HERE, MATRIX_REFERENCE)) as f:
+        table = {e["scenario"]: e for k, e in json.load(f)["entries"].items()
+                 if k.startswith("cpfit:")}
+    with open(os.path.join(HERE, MATRIX_OLD_TABLE)) as f:
+        old = {e["scenario"]: e for e in json.load(f)["per_scenario"] if "scenario" in e}
     scenarios, inputs = [], {}
     for name in MATRIX_SCENARIOS:
         e = manifest[name]
@@ -1717,8 +1765,7 @@ def phase_scenarios(cf, rm, ea, torch, dev):
     t = time.perf_counter()
     buf = io.StringIO()
     with contextlib.redirect_stderr(buf):
-        results = bootstrap.sweep_many(scenarios, maxiter=MATRIX_MAXITER, device=dev,
-                                       dtype=torch.float32)
+        results = bootstrap.sweep_many(scenarios, maxiter=MATRIX_MAXITER, device=dev)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
     launches = cf.correction_sweep.launches
@@ -1743,9 +1790,11 @@ def phase_scenarios(cf, rm, ea, torch, dev):
                     f"scenarios {name}: argmax histogram {hist} != {table[name]['argmax_hist']}")
         log(f"scenarios {name}: {res.llh.size} cells, {res.params.shape[-1]} parameters, "
             f"{int(res.nfev.sum())} llh evals, {res.calls} objective calls, unconverged "
-            f"{int((~res.converged).sum())} at --maxiter {MATRIX_MAXITER}, argmax {hist} (table "
-            f"{table[name]['argmax_hist']}), split CI [{ci['ci'][0]:.6f}, {ci['ci'][1]:.6f}] "
-            f"(table {table[name]['split_ci_gens']})")
+            f"{int((~res.converged).sum())} at --maxiter {MATRIX_MAXITER}, parameters in "
+            f"{res.params.dtype}, argmax {hist} (float64 reference {table[name]['argmax_hist']}, "
+            f"float32 TPU table {old[name]['argmax_hist']}), split CI [{ci['ci'][0]:.6f}, "
+            f"{ci['ci'][1]:.6f}] (float64 reference {table[name]['split_ci_gens']}, float32 TPU "
+            f"table {old[name]['split_ci_gens']})")
     log(f"scenarios: {len(results)} scenarios resident in one process, {wall:.2f} s, "
         f"{calls} objective calls = {launches} kernel launches; per objective call: row_matmul "
         f"{rm_launches / calls:.2f}, expm_action {ea_launches / calls:.2f}, post_fit "
@@ -1755,13 +1804,11 @@ def phase_scenarios(cf, rm, ea, torch, dev):
     name = MATRIX_SCENARIOS[0]
     inp, data, splits, mi = inputs[name]
     fs = build_fused_sweep(inp.times, inp.lambdas, splits, mi, sample_date=inp.sample_date_discr,
-                           unfolded=True, smooth=False, cpfit=True, device=dev,
-                           dtype=torch.float32)
+                           unfolded=True, smooth=False, cpfit=True, device=dev)
     cells = len(splits) * data.shape[0]
     st_all = torch.arange(len(splits), device=dev).repeat_interleave(data.shape[0])
-    data_all = torch.as_tensor(np.tile(data, (len(splits), 1)), dtype=torch.float32, device=dev)
-    x0_all = torch.as_tensor(np.tile(fs.init_params, (cells, 1)), dtype=torch.float32,
-                             device=dev)
+    data_all = torch.as_tensor(np.tile(data, (len(splits), 1)), dtype=fs.dtype, device=dev)
+    x0_all = torch.as_tensor(np.tile(fs.init_params, (cells, 1)), dtype=fs.dtype, device=dev)
     ms, points = _nm_iteration_ms(torch, fs, torch.arange(cells, device=dev), data_all, st_all,
                                   x0_all)
     log(f"scenarios {name}: one Nelder-Mead iteration {ms:.1f} ms at {cells} cells "

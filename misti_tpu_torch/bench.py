@@ -128,7 +128,7 @@ def main() -> int:
     mode = os.environ.get("MISTI_BENCH_MODE", "")
     batch = int(os.environ.get("MISTI_BENCH_BATCH", "4096"))
     reps = int(os.environ.get("MISTI_BENCH_REPS", "60"))
-    lik = build_likelihood(bench_spec(mode))  # CUDA, float32 parameters; raises without a card
+    lik = build_likelihood(bench_spec(mode))  # CUDA, float64; raises without a card
     params = bench_params(batch, lik.device, lik.dtype)
 
     out = lik.llh_batch(params)  # builds and loads the kernel

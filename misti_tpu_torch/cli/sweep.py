@@ -23,9 +23,8 @@ calls of the busiest rank and of all ranks, and each rank's kernel launches
 Migration/pulse templates accept the literal ``ST`` for the split index,
 like the shell variable in the reference scripts.  Output: greppable
 per-cell lines (`bs_id = ... splitT = ... llh = ...`), an .npz results
-table, and the split-time CI.  ``--platform`` defaults to ``cuda`` (float32
-parameters, a float64 likelihood) and raises without a card; ``cpu`` runs
-in float64.
+table, and the split-time CI.  ``--platform`` defaults to ``cuda`` and
+raises without a card; ``cpu`` runs on the CPU.  Both run in float64.
 """
 
 from __future__ import annotations
@@ -74,8 +73,8 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=0, help="bootstrap seed")
     p.add_argument("-o", "--fout", default="", help="output .npz results table")
     p.add_argument("--platform", default="cuda", choices=("cuda", "cpu"),
-                   help="cuda (default: float32 parameters, float64 likelihood; "
-                        "raises without a card) or cpu (float64)")
+                   help="cuda (default; raises without a card) or cpu, "
+                        "float64 on both")
     p.add_argument("--profile", default="",
                    help="directory for a torch.profiler trace of the sweep; "
                         "a device busy/launch summary goes to stderr")

@@ -3,10 +3,13 @@
 Entry points take an explicit ``device`` and ``dtype``.  The default device
 is ``cuda``: with no card, resolution raises instead of quietly picking the
 CPU (tests and CPU users pass ``device="cpu"``).  A run's dtype is that of
-its parameters and its optimiser's simplex, and follows the device as the
-JAX package's does per backend: float32 on CUDA, float64 on the CPU.  The
-likelihood itself computes in ``LLH_DTYPE`` (float64) whatever the run's
-dtype.
+its parameters and its optimiser's simplex: float64 on every device, as the
+JAX package's is where its platform has float64 (its CPU) and as upstream
+MiSTI's is.  The JAX package's float32 on the TPU came from the v5e having
+no float64; the H100 has it, and a float32 simplex there stops short of the
+float64 optimum at no gain in speed (ROADMAP C5, PERF.md).  A caller may
+still pass ``dtype=torch.float32``.  The likelihood itself computes in
+``LLH_DTYPE`` (float64) whatever the run's dtype.
 """
 
 from __future__ import annotations
@@ -42,7 +45,5 @@ def resolve_device(device=None) -> torch.device:
 
 
 def resolve_dtype(device: torch.device, dtype=None) -> torch.dtype:
-    """A run's dtype: float32 on CUDA, float64 on the CPU, unless given."""
-    if dtype is not None:
-        return dtype
-    return torch.float32 if device.type == "cuda" else torch.float64
+    """A run's dtype: float64 on every device, unless given."""
+    return torch.float64 if dtype is None else dtype

@@ -122,7 +122,7 @@ def sweep(
     ``stage_caps``/``maxiter`` tune the fused path's straggler
     compaction (see `_sweep_fused`); ``phase1_maxiter`` is the single-stage
     schedule ``(phase1_maxiter,)``.  ``device`` defaults to CUDA and raises
-    without a card; ``dtype`` to float32 on CUDA, float64 on the CPU.
+    without a card; ``dtype`` (the parameters' and the simplex's) to float64.
 
     ``group`` (a ``torch.distributed`` process group, dist/mesh.py) splits the
     cells over its ranks; every rank must call with the same arguments and

@@ -310,9 +310,9 @@ def build_likelihood(spec: ModelSpec, *, device=None, dtype=None) -> Likelihood:
     """Build the batched likelihood for ``spec``.
 
     ``device`` defaults to CUDA and raises when there is no card; ``dtype``,
-    the parameters' (rounded to it on the way in), defaults to float32 on
-    CUDA and float64 on the CPU.  Every stage computes in LLH_DTYPE and the
-    llh comes back in it.
+    the parameters' (rounded to it on the way in), defaults to float64 on
+    every device.  Every stage computes in LLH_DTYPE and the llh comes back
+    in it.
     """
     dev = resolve_device(device)
     dt = resolve_dtype(dev, dtype)

@@ -121,9 +121,8 @@ def build_fused_sweep(
     host (the same preprocessing as build_spec / the reference
     MigrationInference.py:89-99), so lanes carry different tables.
     ``device`` defaults to CUDA (raising without a card); ``dtype``, the
-    parameters' (rounded to it on the way in), to float32 on CUDA and
-    float64 on the CPU.  Every stage computes in LLH_DTYPE and the llh comes
-    back in it.
+    parameters' (rounded to it on the way in), to float64 on every device.
+    Every stage computes in LLH_DTYPE and the llh comes back in it.
     """
     dev = resolve_device(device)
     dt = resolve_dtype(dev, dtype)

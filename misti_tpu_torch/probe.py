@@ -172,9 +172,22 @@ def trace_llh(fs, st, params, data7, lanes=None, keep=()):
     return tr, tr._cut(out, B)
 
 
+def same_bits(a, b) -> bool:
+    """Bitwise equal: the same shape, dtype and NaN mask, and the same bits
+    everywhere else (so -0 is not +0, nor inf the largest double)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if not a.is_floating_point():
+        return bool(torch.equal(a, b))
+    nan = a.isnan()
+    ints = {2: torch.int16, 4: torch.int32, 8: torch.int64}[a.element_size()]
+    return bool(torch.equal(nan, b.isnan())
+                and torch.equal(a.view(ints)[~nan], b.view(ints)[~nan]))
+
+
 def _diff(a, b):
     """(bitwise equal, max |a - b| over entries finite in both)."""
-    same = a.shape == b.shape and bool(torch.equal(torch.nan_to_num(a), torch.nan_to_num(b)))
+    same = same_bits(a, b)
     if a.shape != b.shape:
         return False, float("nan")
     fin = torch.isfinite(a) & torch.isfinite(b)

@@ -1,6 +1,9 @@
 """scripts/torch_matrix_card.py on the CPU: its reader of the JAX package's
-matrix cell lines (scripts/matrix_r05.out) and its judges, on toy tables.
-The script itself runs on a card; nothing here needs one.
+matrix cell lines (the float32 TPU table scripts/matrix_r05.out and the
+float64 CPU reference scripts/matrix_f64_cpu.out) and its judges, on toy
+tables; and the one cpfit cell where the TPU table is not the float64
+optimum.  The script itself runs on a card; so does the one test here that
+needs one (it skips without a card).
 """
 
 import importlib.util
@@ -24,6 +27,14 @@ TIMES = np.full(30, 0.25)
 
 @pytest.fixture(scope="module")
 def table_cells():
+    """The JAX package's float32 TPU table's cells."""
+    with open(mc.OLD_TABLE_OUT) as f:
+        return mc.parse_cells(f)
+
+
+@pytest.fixture(scope="module")
+def reference_cells():
+    """The float64 CPU reference's cells (cpfit by name, ECT as ``ect:NAME``)."""
     with open(mc.TABLE_OUT) as f:
         return mc.parse_cells(f)
 
@@ -37,7 +48,7 @@ def test_parser_reads_every_cell_of_the_table(table_cells):
     assert table_cells["pair1.no.mig"][(20.0, 0)] == ((), -995.9375)
     assert table_cells["pair1.mi21"][(20.0, 2)] == ((0.0003915783,), -986.8125)
     assert table_cells["pair3.mi2"][(20.0, 1)] == ((0.00037074997, 0.0005073919), -552.0)
-    with open(mc.TABLE_JSON) as f:
+    with open(mc.OLD_TABLE_JSON) as f:
         per = {e["scenario"]: e for e in json.load(f)["per_scenario"] if "scenario" in e}
     splits = [float(s) for s in range(20, 28)]
     for name, cells in table_cells.items():
@@ -92,8 +103,8 @@ def test_judge_cpfit_on_a_toy_two_scenario_table(fault):
             llh = llh.copy()
             llh[0, 0] = -np.inf
         table_par = np.full_like(params, 0.3)
-        verdicts.append(mc.judge_cpfit(llh, params, conv, SPLITS, ci, table, table_par,
-                                       _llh64))
+        verdicts.append(mc.judge_table(llh, params, conv, SPLITS, ci, table, table_par, llh,
+                                       conv, _llh64))
     assert verdicts[0]["ok"]
     bad = verdicts[1]
     if fault == "none":
@@ -104,17 +115,23 @@ def test_judge_cpfit_on_a_toy_two_scenario_table(fault):
 
 
 def test_judge_cpfit_skips_unconverged_cells_and_marks_degenerate_cis():
+    """A cell left unconverged by this run or by the reference is not
+    judged; a zero-width reference CI is marked."""
     llh, params, ci, table = _toy(3)
     params = params.copy()
     params[2, 1, 0] = 5.0  # far off, but the cell did not converge
-    conv = np.ones(llh.shape, bool)
-    conv[2, 1] = False
-    v = mc.judge_cpfit(llh, params, conv, SPLITS, ci, table, np.full_like(params, 0.3), _llh64)
-    assert v["ok"] and v["float64_judged_cells"] == llh.size - 1
-    assert not v["degenerate"]
-    v = mc.judge_cpfit(llh, params, conv, SPLITS, ci, dict(table, split_ci_gens=[7.0, 7.0]),
-                       np.full_like(params, 0.3), _llh64)
+    params[0, 4, 0] = 4.0  # far off, but the reference's cell did not converge
+    conv, ref_conv = np.ones(llh.shape, bool), np.ones(llh.shape, bool)
+    conv[2, 1] = ref_conv[0, 4] = False
+    tp = np.full_like(params, 0.3)
+    v = mc.judge_table(llh, params, conv, SPLITS, ci, table, tp, llh, ref_conv, _llh64)
+    assert v["ok"] and v["float64_judged_cells"] == llh.size - 2
+    assert not v["degenerate"] and v["share_llh_within_1e-6"] == 1.0
+    v = mc.judge_table(llh, params, conv, SPLITS, ci, dict(table, split_ci_gens=[7.0, 7.0]),
+                       tp, llh + np.where(np.arange(llh.size).reshape(llh.shape) < 3, 1e-3, 0.0),
+                       ref_conv, _llh64)
     assert v["degenerate"] and not v["gates"]["ci"]
+    assert v["share_llh_within_1e-6"] == 1 - 3 / llh.size
 
 
 @pytest.mark.parametrize("gap, ok", [(-0.049, True), (-0.051, False)], ids=["within", "below"])
@@ -138,12 +155,33 @@ def test_merge_keeps_one_entry_per_scenario_and_mode(tmp_path):
     assert sorted(got) == ["cpfit:x", "ect:x"] and got["cpfit:x"]["n"] == 2
 
 
-def test_pair2_mi2_cell_float64_fit_matches_jax_and_beats_the_table(table_cells, monkeypatch):
-    """The one cpfit matrix cell where the card's converged float32 fit sits
-    below the JAX table's (pair2.mi2, split 24, bootstrap row 81): fitted in
-    float64 on the CPU, the port and the JAX package reach the same optimum,
-    and it lies above the table's fit, whose float64 llh is lower by more
-    than the gate's 5e-2 -- so the table is not the float64 optimum there."""
+PAIR2_MI = [["1", "4", "ST", "1", "1"], ["2", "4", "ST", "1", "1"]]
+PAIR2_FLAGS = dict(unfolded=True, smooth=False, cpfit=True, tol=1e-4, maxiter=1000)
+
+
+def _pair2_cell(row=81):
+    """pair2's merged grid and bootstrap row ``row`` (seed 0), as the matrix
+    fits them."""
+    from misti_tpu_torch.engine import bootstrap as tb
+    from misti_tpu_torch.io import jsfs as tio_jsfs
+    from misti_tpu_torch.io import psmc as tio_psmc
+
+    fix = os.path.join(REPO, "tests", "fixtures", "matrix") + os.sep
+    inp = tio_psmc.read_psmc(fix + "pair2_1.psmc", fix + "pair2_2.psmc", 0, -1)
+    data = tb.make_bootstrap_data(tio_jsfs.read_jafs(fix + "pair2.jsfs"), 100, seed=0)
+    return inp, data[row:row + 1]
+
+
+def test_pair2_mi2_cell_float64_fit_matches_jax_and_beats_the_table(table_cells,
+                                                                    reference_cells,
+                                                                    monkeypatch):
+    """The one cpfit matrix cell where the card's converged float32 fit sat
+    below the JAX TPU table's (pair2.mi2, split 24, bootstrap row 81): fitted
+    in float64 on the CPU, the port and the JAX package reach the same
+    optimum, the float64 reference (scripts/matrix_f64_cpu.out) holds it, and
+    it lies above the TPU table's fit, whose float64 llh is lower by more
+    than the gate's 5e-2 -- so the TPU table is not the float64 optimum
+    there."""
     import torch
 
     from misti_tpu.engine import bootstrap as jb
@@ -151,30 +189,56 @@ def test_pair2_mi2_cell_float64_fit_matches_jax_and_beats_the_table(table_cells,
     from misti_tpu.io import psmc as jio_psmc
     from misti_tpu_torch.engine import bootstrap as tb
     from misti_tpu_torch.engine.sweep_fused import build_fused_sweep
-    from misti_tpu_torch.io import jsfs as tio_jsfs
-    from misti_tpu_torch.io import psmc as tio_psmc
 
     monkeypatch.setenv("MISTI_CORRECTION", "fused-xla")  # the port's correction algorithm
     fix = os.path.join(REPO, "tests", "fixtures", "matrix") + os.sep
-    mi = [["1", "4", "ST", "1", "1"], ["2", "4", "ST", "1", "1"]]
-    flags = dict(unfolded=True, smooth=False, cpfit=True, tol=1e-4, maxiter=1000)
-    inp = tio_psmc.read_psmc(fix + "pair2_1.psmc", fix + "pair2_2.psmc", 0, -1)
-    data = tb.make_bootstrap_data(tio_jsfs.read_jafs(fix + "pair2.jsfs"), 100, seed=0)[81:82]
-    port = tb.sweep(inp.times, inp.lambdas, data, [24.0], mi, (), device="cpu",
-                    dtype=torch.float64, sample_date=inp.sample_date_discr, **flags)
+    inp, data = _pair2_cell()
+    port = tb.sweep(inp.times, inp.lambdas, data, [24.0], PAIR2_MI, (), device="cpu",
+                    dtype=torch.float64, sample_date=inp.sample_date_discr, **PAIR2_FLAGS)
     jinp = jio_psmc.read_psmc(fix + "pair2_1.psmc", fix + "pair2_2.psmc", 0, -1)
     jdata = jb.make_bootstrap_data(jio_jsfs.read_jafs(fix + "pair2.jsfs"), 100, seed=0)[81:82]
     np.testing.assert_array_equal(jdata, data)
-    ref = jb.sweep(jinp.times, jinp.lambdas, jdata, [24.0], mi, (),
-                   sample_date=jinp.sample_date_discr, stage_caps=(1000,), **flags)
+    ref = jb.sweep(jinp.times, jinp.lambdas, jdata, [24.0], PAIR2_MI, (),
+                   sample_date=jinp.sample_date_discr, stage_caps=(1000,), **PAIR2_FLAGS)
     assert bool(port.converged.all()) and int(port.nfev[0, 0]) == int(np.asarray(ref.nfev)[0, 0])
     np.testing.assert_allclose(port.params[0, 0], np.asarray(ref.params)[0, 0], rtol=1e-9,
                                atol=1e-12)
     np.testing.assert_allclose(port.llh[0, 0], np.asarray(ref.llh)[0, 0], rtol=1e-10)
+    ref_x, ref_llh = reference_cells["pair2.mi2"][(24.0, 81)]
+    np.testing.assert_allclose(ref_x, np.asarray(ref.params)[0, 0], rtol=1e-9, atol=1e-12)
+    np.testing.assert_allclose(ref_llh, np.asarray(ref.llh)[0, 0], rtol=1e-10)
 
-    fs = build_fused_sweep(inp.times, inp.lambdas, [24.0], mi, (),
+    fs = build_fused_sweep(inp.times, inp.lambdas, [24.0], PAIR2_MI, (),
                            sample_date=inp.sample_date_discr, unfolded=True, smooth=False,
                            cpfit=True, device="cpu", dtype=torch.float64)
     table_x = table_cells["pair2.mi2"][(24.0, 81)][0]
     llh_table = float(fs.llh(torch.zeros(1, dtype=torch.int64), np.array([table_x]), data)[0])
     assert port.llh[0, 0] - llh_table > mc.LLH_LIMIT
+
+
+@pytest.fixture
+def cuda():
+    import torch
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the sweep's kernels have no CPU form")
+    return torch.device("cuda")
+
+
+def test_card_pair2_mi2_cell_default_dtype_reaches_the_float64_fit(cuda):
+    """C5's cell on the card: the port's sweep in its default dtype fits
+    pair2.mi2, split 24, bootstrap row 81 no lower than its float64 fit on
+    the CPU, by at most 1e-6 nats (float32 parameters stopped 0.191 nats
+    short there)."""
+    import torch
+
+    from misti_tpu_torch.engine import bootstrap as tb
+
+    inp, data = _pair2_cell()
+    kw = dict(sample_date=inp.sample_date_discr, **PAIR2_FLAGS)
+    card = tb.sweep(inp.times, inp.lambdas, data, [24.0], PAIR2_MI, (), device=cuda, **kw)
+    cpu = tb.sweep(inp.times, inp.lambdas, data, [24.0], PAIR2_MI, (), device="cpu",
+                   dtype=torch.float64, **kw)
+    assert card.params.dtype == np.float64
+    assert bool(card.converged.all()) and bool(cpu.converged.all())
+    assert card.llh[0, 0] >= cpu.llh[0, 0] - 1e-6

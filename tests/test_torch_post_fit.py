@@ -416,33 +416,43 @@ def test_warp_branch_mix():
     live ones, in fewer warps than the PR 9 mapping on sweep-like per-lane
     tables; neither the old nor the lane-major mapping mixes any on the
     bench's shared tables (every row on the series form, no T == 0 row)."""
-    args = _sweep_like()
-    old = kpf.warp_branch_mix(*args, layout="old")
-    new = kpf.warp_branch_mix(*args, layout="lane")
-    assert 0.2 < old["series_share"] < 0.8 and old["zero_rows"] == 200 * 28
-    assert new["mixed_forms"] < old["mixed_forms"] and new["mixed_zero"] < old["mixed_zero"]
-    assert new["mixed_forms"] <= 0.05 and new["mixed_zero"] <= 0.05
     from misti_tpu_torch import build_likelihood
     from misti_tpu_torch.bench import bench_params, bench_spec
 
-    seen = []
+    # the plain fit of 1600 ECT lanes: one intra-op thread, as beside the
+    # other test workers more threads take minutes where one takes seconds
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        args = _sweep_like()
+        lc, _ = lk.post_split_fit_plain(*args, cpfit=False)
+        old = kpf.warp_branch_mix(*args, layout="old", lc=lc)
+        new = kpf.warp_branch_mix(*args, layout="lane", lc=lc)
+        assert 0.2 < old["series_share"] < 0.8 and old["zero_rows"] == 200 * 28
+        assert new["mixed_forms"] < old["mixed_forms"] and new["mixed_zero"] < old["mixed_zero"]
+        assert new["mixed_forms"] <= 0.05 and new["mixed_zero"] <= 0.05
 
-    def rec(*a, **kw):
-        seen.append(a)
-        raise StopIteration
+        seen = []
 
-    lik = build_likelihood(bench_spec("ect"), device="cpu")
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(lk, "post_split_fit", rec)
-        with pytest.raises(StopIteration):
-            lik.llh_batch(bench_params(64, "cpu", torch.float64))
-    nc, lh, T = seen[0]
-    assert T.shape[0] == 1 and bool((T != 0).all())
-    for layout in ("old", "lane"):
-        for G in (1, 32) if layout == "lane" else (1,):
-            mix = kpf.warp_branch_mix(nc, lh, T, layout=layout, group=G)
-            assert mix["series_share"] == 1.0
-            assert mix["mixed_forms"] == mix["mixed_zero"] == 0.0
+        def rec(*a, **kw):
+            seen.append(a)
+            raise StopIteration
+
+        lik = build_likelihood(bench_spec("ect"), device="cpu")
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(lk, "post_split_fit", rec)
+            with pytest.raises(StopIteration):
+                lik.llh_batch(bench_params(64, "cpu", torch.float64))
+        nc, lh, T = seen[0]
+        assert T.shape[0] == 1 and bool((T != 0).all())
+        lc, _ = lk.post_split_fit_plain(nc, lh, T, cpfit=False)
+        for layout in ("old", "lane"):
+            for G in (1, 32) if layout == "lane" else (1,):
+                mix = kpf.warp_branch_mix(nc, lh, T, layout=layout, group=G, lc=lc)
+                assert mix["series_share"] == 1.0
+                assert mix["mixed_forms"] == mix["mixed_zero"] == 0.0
+    finally:
+        torch.set_num_threads(threads)
 
 
 # --- on the card ------------------------------------------------------------

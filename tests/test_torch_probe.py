@@ -42,7 +42,14 @@ def test_mix_probe_counts_the_warps_and_the_skipped_work(monkeypatch, tmp_path, 
     repeat some prefixes, and the bisection stops before its 60th halving
     on average."""
     monkeypatch.setattr(probe, "REPLICATES", 1)
-    assert probe.main(["mix", "--device", "cpu", "--out", str(tmp_path / "m.txt")]) == 0
+    # the plain ECT fits of 4096 lanes: one intra-op thread, as beside the
+    # other test workers more threads take minutes where one takes seconds
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        assert probe.main(["mix", "--device", "cpu", "--out", str(tmp_path / "m.txt")]) == 0
+    finally:
+        torch.set_num_threads(threads)
     rows = [json.loads(ln) for ln in capsys.readouterr().out.splitlines() if ln.startswith("{")]
     assert [r["input"] for r in rows] == ["sweep, first ECT call", "bench, ECT",
                                           "single fit, ECT"]
@@ -52,3 +59,22 @@ def test_mix_probe_counts_the_warps_and_the_skipped_work(monkeypatch, tmp_path, 
         assert 0 < r["work"]["repeated_prefix_share"] < 1 and r["work"]["halvings_mean"] < 60
     assert rows[1]["old"]["mixed_forms"] == rows[1]["lane"]["mixed_forms"] == 0.0
     assert rows[0]["old"]["zero_rows"] > 0 and rows[0]["tables"] == "per lane"
+
+
+def test_same_bits_tells_signed_zeros_and_infinities_apart():
+    """The width probe's lane check compares bits: -0 is not +0, inf is not
+    the largest double, NaN masks must match, and dtypes and shapes too."""
+    x = torch.tensor([0.0, 1.5, float("inf"), float("nan")], dtype=torch.float64)
+    assert probe.same_bits(x, x.clone())
+    assert not probe.same_bits(x, torch.tensor([-0.0, 1.5, float("inf"), float("nan")],
+                                               dtype=torch.float64))
+    big = torch.finfo(torch.float64).max
+    assert not probe.same_bits(x, torch.tensor([0.0, 1.5, big, float("nan")],
+                                               dtype=torch.float64))
+    assert not probe.same_bits(x, torch.tensor([0.0, 1.5, float("inf"), 0.0],
+                                               dtype=torch.float64))
+    assert not probe.same_bits(x, x.float())
+    assert not probe.same_bits(x, x[:3])
+    n = torch.arange(4)
+    assert probe.same_bits(n, n.clone()) and not probe.same_bits(n, n.flip(0))
+    assert probe._diff(x, x.clone()) == (True, 0.0)
