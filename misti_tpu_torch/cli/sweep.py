@@ -76,8 +76,10 @@ def make_parser() -> argparse.ArgumentParser:
                    help="cuda (default; raises without a card) or cpu, "
                         "float64 on both")
     p.add_argument("--profile", default="",
-                   help="directory for a torch.profiler trace of the sweep; "
-                        "a device busy/launch summary goes to stderr")
+                   help="directory for a torch.profiler trace of the sweep with "
+                        "the port's spans (trace.json) and the span records "
+                        "(spans.jsonl); the device's busy time over the profiled "
+                        "wall and the top kernels go to stderr")
     p.add_argument("--stages", nargs="+", type=int, default=None,
                    metavar="CAP",
                    help="straggler-compaction iteration caps (default "
@@ -89,19 +91,30 @@ def make_parser() -> argparse.ArgumentParser:
 
 
 class _Profile:
-    """torch.profiler around the sweep: a Chrome trace in ``directory`` and,
-    on stderr, the device's busy time (kernels' device time, device events
-    only) over the profiled wall, the kernel launches and the top kernels."""
+    """torch.profiler around the sweep, with the port's spans recorded
+    (misti_tpu_torch/spans.py): in ``directory`` a Chrome trace,
+    ``trace.json``, which holds the spans as host events beside the kernels,
+    and the span records, ``spans.jsonl``; on stderr the device's busy time
+    (the union of its operations, the profiler's annotation ranges left
+    out) over the profiled wall, the kernels and the top kernels."""
 
     def __init__(self, directory: str):
+        import torch
         from torch.profiler import ProfilerActivity, profile
+
+        from ..spans import recording
 
         os.makedirs(directory, exist_ok=True)
         self.directory = directory
-        self.prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+        activities = [ProfilerActivity.CPU]
+        if torch.cuda.is_available():
+            activities.append(ProfilerActivity.CUDA)
+        self.prof = profile(activities=activities)
+        self.recording = recording()
 
     def __enter__(self):
         self.prof.__enter__()  # starting the tracer takes seconds: not in the wall
+        self.records = self.recording.__enter__()
         self.t0 = time.perf_counter()
         return self
 
@@ -112,16 +125,34 @@ class _Profile:
         if torch.cuda.is_available():
             torch.cuda.synchronize()
         wall = (time.perf_counter() - self.t0) * 1e3
+        self.recording.__exit__(*exc)
         self.prof.__exit__(*exc)
         self.prof.export_chrome_trace(os.path.join(self.directory, "trace.json"))
-        kernels = [e for e in self.prof.key_averages() if e.device_type == DeviceType.CUDA]
-        busy = sum(e.self_device_time_total for e in kernels) / 1e3
-        print(f"# profile: device busy {busy:.3f} ms of {wall:.3f} ms wall under the "
-              f"profiler ({100 * busy / wall:.1f}% busy), "
-              f"{sum(e.count for e in kernels)} kernel launches", file=sys.stderr)
-        for e in sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:8]:
-            print(f"#   {e.key[:70]:70s} {e.self_device_time_total / 1e3:9.3f} ms "
-                  f"{e.count:7d} launches", file=sys.stderr)
+        with open(os.path.join(self.directory, "spans.jsonl"), "w") as f:
+            for r in self.records:
+                f.write(json.dumps(r) + "\n")
+        names = {r["name"] for r in self.records}
+
+        def annotation(e):  # a span's range on the device's timeline, not work
+            flag = getattr(e, "is_user_annotation", None)
+            return e.name() in names or (flag is not None and flag())
+
+        ops = sorted((e.start_ns(), e.start_ns() + e.duration_ns(), e.name())
+                     for e in self.prof.profiler.kineto_results.events()
+                     if e.device_type() == DeviceType.CUDA and not annotation(e))
+        busy, end, by_kernel = 0, 0, {}
+        for start, stop, name in ops:  # the union of the operations' intervals
+            busy += max(stop - max(start, end), 0)
+            end = max(end, stop)
+            if not name.startswith(("Memcpy", "Memset")):
+                t, k = by_kernel.get(name, (0, 0))
+                by_kernel[name] = (t + stop - start, k + 1)
+        busy /= 1e6
+        print(f"# profile: device busy {busy:.3f} ms over the profiled wall {wall:.3f} ms "
+              f"({100 * busy / wall:.1f}% busy), "
+              f"{sum(k for _, k in by_kernel.values())} kernels", file=sys.stderr)
+        for name, (t, k) in sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:8]:
+            print(f"#   {name[:70]:70s} {t / 1e6:9.3f} ms {k:7d} kernels", file=sys.stderr)
 
 
 def main(argv=None) -> int:

@@ -20,7 +20,6 @@ from __future__ import annotations
 import dataclasses
 import random
 import sys
-import time
 import zlib
 from typing import Optional, Sequence
 
@@ -31,6 +30,7 @@ from ..config import resolve_device, resolve_dtype
 from ..dist.mesh import all_gather_rows, pad_to_multiple, rank, row_block, world_size
 from ..io.data import Jafs
 from ..io.jsfs import bootstrap_jafs
+from ..spans import span, timed
 from .likelihood import build_likelihood
 from .optimize import NMState, nelder_mead
 from .spec import build_spec
@@ -128,9 +128,21 @@ def sweep(
     cells over its ranks; every rank must call with the same arguments and
     gets the same result.  None fits every cell in this process.
     """
+    data = np.asarray(data, float)
+    with span("sweep", splits=len(split_times), replicates=data.shape[0],
+              cells=len(split_times) * data.shape[0]):
+        return _sweep(times, lambdas, data, split_times, mi_template, pu_template, tol=tol,
+                      device=device, dtype=dtype, sample_date=sample_date, fused=fused,
+                      stage_caps=stage_caps, maxiter=maxiter, phase1_maxiter=phase1_maxiter,
+                      group=group, **spec_flags)
+
+
+def _sweep(times, lambdas, data, split_times, mi_template, pu_template, *, tol, device,
+           dtype, sample_date, fused, stage_caps, maxiter, phase1_maxiter, group,
+           **spec_flags):
+    """`sweep` inside its span."""
     dev = resolve_device(device)
     dt = resolve_dtype(dev, dtype)
-    data = np.asarray(data, float)
     b = data.shape[0]
     if group is not None:
         _check_same_data(data, group)
@@ -199,9 +211,10 @@ def _sweep_fused(times, lambdas, data, splits, mi_template, pu_template, *,
     all-gathered in the run's dtype, so every rank computes the same next
     stage.  Stage lines go to stderr from rank 0 only.
     """
-    fs = build_fused_sweep(times, lambdas, splits, mi_template, pu_template,
-                           sample_date=sample_date, device=device, dtype=dtype,
-                           **spec_flags)
+    with span("sweep.tables"):
+        fs = build_fused_sweep(times, lambdas, splits, mi_template, pu_template,
+                               sample_date=sample_date, device=device, dtype=dtype,
+                               **spec_flags)
     dev, dt = fs.device, fs.dtype
     b = data.shape[0]
     n_cells = len(splits) * b
@@ -217,48 +230,54 @@ def _sweep_fused(times, lambdas, data, splits, mi_template, pu_template, *,
     x0 = torch.as_tensor(np.tile(fs.init_params, (n_cells, 1)), dtype=dt, device=dev)
     calls = [0]
 
-    t0 = time.perf_counter()
-    sp, _ = pad_to_multiple(st_idx, world)
-    dp, _ = pad_to_multiple(cell_data, world, fill=1.0)
-    xp, _ = pad_to_multiple(x0, world)
-    mine = row_block(sp.shape[0], world, me)
-    res, state = nelder_mead(_lane_objective(fs.llh, sp[mine], dp[mine], calls), xp[mine],
-                             xatol=tol, fatol=tol, maxiter=caps[0], with_state=True)
-    gather = lambda t: all_gather_rows(t, group, n_cells).clone()
-    x, fun, nfev, conv = (gather(t) for t in (res.x, res.fun, res.nfev, res.converged))
-    sim, fsim, it, nfev_s = (gather(t) for t in state[:4])
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+    # the points per cell of an iteration's objective call (one without parameters)
+    n_trial = fs.n_params + 5 if fs.n_params else 1
+    with timed("sweep.stage", stage=1, cells=n_cells, cap=caps[0]) as stage:
+        sp, _ = pad_to_multiple(st_idx, world)
+        dp, _ = pad_to_multiple(cell_data, world, fill=1.0)
+        xp, _ = pad_to_multiple(x0, world)
+        mine = row_block(sp.shape[0], world, me)
+        res, state = nelder_mead(_lane_objective(fs.llh, sp[mine], dp[mine], calls), xp[mine],
+                                 xatol=tol, fatol=tol, maxiter=caps[0], with_state=True)
+        gather = lambda t: all_gather_rows(t, group, n_cells).clone()
+        x, fun, nfev, conv = (gather(t) for t in (res.x, res.fun, res.nfev, res.converged))
+        sim, fsim, it, nfev_s = (gather(t) for t in state[:4])
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        left = int((~conv).sum()) if me == 0 or stage else None
+        stage.set(lanes=(mine.stop - mine.start) * n_trial, calls=calls[0], unconverged=left)
     if me == 0:
         print(f"# sweep stage 1/{len(caps)}: {n_cells} cells to cap {caps[0]}, "
-              f"{time.perf_counter() - t0:.1f} s, unconverged {int((~conv).sum())}",
-              file=sys.stderr)
+              f"{stage.seconds:.1f} s, unconverged {left}", file=sys.stderr)
 
     if fs.n_params and len(caps) > 1:
         for si, cap in enumerate(caps[1:], start=2):
             todo = torch.nonzero(~conv).flatten()
             if todo.numel() == 0:
                 break
-            t0 = time.perf_counter()
-            idx, m = pad_to_multiple(todo, world, fill=int(todo[0]))
-            sel = idx[row_block(idx.numel(), world, me)]
-            st0 = NMState(sim=sim[sel], fsim=fsim[sel], it=it[sel], nfev=nfev_s[sel],
-                          aux_sum=torch.zeros((sel.numel(), 0), dtype=dt, device=dev))
-            r2, s2 = nelder_mead(
-                _lane_objective(fs.llh, st_idx[sel], cell_data[sel], calls), x0[sel],
-                xatol=tol, fatol=tol, maxiter=cap, state0=st0, with_state=True)
-            gather = lambda t: all_gather_rows(t, group, m)
-            x[todo], fun[todo], nfev[todo] = gather(r2.x), gather(r2.fun), gather(r2.nfev)
-            conv[todo] = gather(r2.converged)
-            sim[todo], fsim[todo] = gather(s2.sim), gather(s2.fsim)
-            it[todo], nfev_s[todo] = gather(s2.it), gather(s2.nfev)
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
+            with timed("sweep.stage", stage=si, cells=todo.numel(), cap=cap) as stage:
+                calls0 = calls[0]
+                idx, m = pad_to_multiple(todo, world, fill=int(todo[0]))
+                sel = idx[row_block(idx.numel(), world, me)]
+                st0 = NMState(sim=sim[sel], fsim=fsim[sel], it=it[sel], nfev=nfev_s[sel],
+                              aux_sum=torch.zeros((sel.numel(), 0), dtype=dt, device=dev))
+                r2, s2 = nelder_mead(
+                    _lane_objective(fs.llh, st_idx[sel], cell_data[sel], calls), x0[sel],
+                    xatol=tol, fatol=tol, maxiter=cap, state0=st0, with_state=True)
+                gather = lambda t: all_gather_rows(t, group, m)
+                x[todo], fun[todo], nfev[todo] = gather(r2.x), gather(r2.fun), gather(r2.nfev)
+                conv[todo] = gather(r2.converged)
+                sim[todo], fsim[todo] = gather(s2.sim), gather(s2.fsim)
+                it[todo], nfev_s[todo] = gather(s2.it), gather(s2.nfev)
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
+                left = int((~conv).sum()) if me == 0 or stage else None
+                stage.set(lanes=sel.numel() * n_trial, calls=calls[0] - calls0, unconverged=left)
             if me == 0:
                 print(f"# sweep stage {si}/{len(caps)}: {todo.numel()} cells "
                       f"resumed to cap {cap}, "
-                      f"{time.perf_counter() - t0:.1f} s, "
-                      f"unconverged {int((~conv).sum())}", file=sys.stderr)
+                      f"{stage.seconds:.1f} s, "
+                      f"unconverged {left}", file=sys.stderr)
 
     calls_max, calls_sum = _rank_calls(calls[0], group)
     S = len(splits)

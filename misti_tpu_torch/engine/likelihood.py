@@ -31,14 +31,22 @@ import torch
 
 from ..config import LLH_DTYPE, resolve_device, resolve_dtype
 from ..kernels.correction import fit_single_pop
-from ..kernels.correction_fused import fused_correction
+from ..kernels.correction_fused import correction_sweep, fused_correction
 from ..kernels.expm import expm_action_pair, sparse_basis
+from ..kernels.expm_action import expm_action
 from ..kernels.post_fit import post_fit
 from ..kernels.row_matmul import row_matmul
 from ..model import statespace as ss
+from ..spans import span, spanned
 from .spec import ModelSpec
 
 _POST_OUTERS = 6  # Jacobi rounds of the ECT post-split fit
+
+
+def hand_launches() -> int:
+    """The launches of the four hand kernels so far, in this process."""
+    return correction_sweep.launches + expm_action.launches + post_fit.launches \
+        + row_matmul.launches
 
 
 def _pulse_update_3state(p, rate, pop: int):
@@ -306,6 +314,7 @@ class Likelihood:
     sweep_opts: dict = dataclasses.field(default_factory=dict)  # its options
 
 
+@spanned("likelihood.build")
 def build_likelihood(spec: ModelSpec, *, device=None, dtype=None) -> Likelihood:
     """Build the batched likelihood for ``spec``.
 
@@ -374,35 +383,37 @@ def build_likelihood(spec: ModelSpec, *, device=None, dtype=None) -> Likelihood:
     # -- correction (CorrectLambdas, MigrationInference.py:305-378) ---------
 
     def correct(mi, pu):
-        B = mi.shape[0]
-        p0 = torch.tensor([[1.0, 0.0, 0.0], [0.0, 1.0, 0.0]], dtype=ct, device=dev)
-        p0b = p0.expand(B, 2, 3)
-        lh_pre = lh_t[:s].expand(B, s, 2)
-        if not spec.correct or s == 0:
-            # trueEPS: rates pass through; p0 evolves only by pulses
-            p = p0b
-            pr_tail = []
-            for t in range(s):
-                p = _pulse_update_3state(p, pu[:, t, 0], 0)
-                p = _pulse_update_3state(p, pu[:, t, 1], 1)
-                pr_tail.append(p.transpose(1, 2))
-            lc_pre = lh_pre
-            pr = torch.stack([p0b.transpose(1, 2), *pr_tail], dim=1)
-            nc = p.sum(-1)
-            valid = torch.ones(B, dtype=torch.bool, device=dev)
-        else:
-            lc_pre, p_after = fused_correction(
-                mi[:, :s], pu[:, :s], lh_t[:s], pre_T_t, **sweep_opts)
-            pr = torch.cat([p0b.transpose(1, 2)[:, None], p_after.transpose(2, 3)], dim=1)
-            nc = p_after[:, -1].sum(-1)
-            valid = (lc_pre > 0).all(-1).all(-1)
+        with span("llh.correct"):
+            B = mi.shape[0]
+            p0 = torch.tensor([[1.0, 0.0, 0.0], [0.0, 1.0, 0.0]], dtype=ct, device=dev)
+            p0b = p0.expand(B, 2, 3)
+            lh_pre = lh_t[:s].expand(B, s, 2)
+            if not spec.correct or s == 0:
+                # trueEPS: rates pass through; p0 evolves only by pulses
+                p = p0b
+                pr_tail = []
+                for t in range(s):
+                    p = _pulse_update_3state(p, pu[:, t, 0], 0)
+                    p = _pulse_update_3state(p, pu[:, t, 1], 1)
+                    pr_tail.append(p.transpose(1, 2))
+                lc_pre = lh_pre
+                pr = torch.stack([p0b.transpose(1, 2), *pr_tail], dim=1)
+                nc = p.sum(-1)
+                valid = torch.ones(B, dtype=torch.bool, device=dev)
+            else:
+                lc_pre, p_after = fused_correction(
+                    mi[:, :s], pu[:, :s], lh_t[:s], pre_T_t, **sweep_opts)
+                pr = torch.cat([p0b.transpose(1, 2)[:, None], p_after.transpose(2, 3)], dim=1)
+                nc = p_after[:, -1].sum(-1)
+                valid = (lc_pre > 0).all(-1).all(-1)
 
-        lc_post, nc_fin = post_split_fit(nc, lh_post1, post_T1, cpfit=spec.cpfit)
-        lam_last = last_rate(nc_fin, lh_last1)
-        lc_last = torch.stack([lam_last, lam_last], dim=-1)[:, None]
-        if smooth_w is not None:
-            lc_pre = smooth_rates(lc_pre, smooth_w)
-        lc = torch.cat([lc_pre, lc_post, lc_last], dim=1)  # (B, numT, 2)
+        with span("llh.post_split"):
+            lc_post, nc_fin = post_split_fit(nc, lh_post1, post_T1, cpfit=spec.cpfit)
+            lam_last = last_rate(nc_fin, lh_last1)
+            lc_last = torch.stack([lam_last, lam_last], dim=-1)[:, None]
+            if smooth_w is not None:
+                lc_pre = smooth_rates(lc_pre, smooth_w)
+            lc = torch.cat([lc_pre, lc_post, lc_last], dim=1)  # (B, numT, 2)
         return lc, pr, valid
 
     def spectrum(lc, mi, pu):
@@ -412,13 +423,20 @@ def build_likelihood(spec: ModelSpec, *, device=None, dtype=None) -> Likelihood:
     # -- full likelihood ------------------------------------------------------
 
     def _core(params, data, llh_const):
-        nonneg = (params >= 0).all(-1)
-        mi, pu = map_params(params)
-        lc, pr, valid_corr = correct(mi, pu)
-        llh, jafs, pos = multinomial_llh(spectrum(lc, mi, pu), data, llh_const,
-                                         spec.unfolded)
-        valid = nonneg & valid_corr & pos
-        llh = torch.where(valid, llh, torch.full_like(llh, -float("inf")))
+        with span("llh", lanes=params.shape[0]) as sp:
+            launched = hand_launches() if sp else 0
+            with span("llh.lanes"):
+                nonneg = (params >= 0).all(-1)
+                mi, pu = map_params(params)
+            lc, pr, valid_corr = correct(mi, pu)
+            with span("llh.spectrum"):
+                jafs_raw = spectrum(lc, mi, pu)
+            with span("llh.multinomial"):
+                llh, jafs, pos = multinomial_llh(jafs_raw, data, llh_const, spec.unfolded)
+                valid = nonneg & valid_corr & pos
+                llh = torch.where(valid, llh, torch.full_like(llh, -float("inf")))
+            if sp:
+                sp.set(hand_launches=hand_launches() - launched)
         # Report() counters (MigrationInference.py:306,336,347,567): "called"
         # once per eval past the negative-rate guard, "failed" when the sweep
         # ran and left a rate <= 0

@@ -26,6 +26,8 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
+from ..spans import count, span, spanned
+
 _RHO = 1.0  # reflection
 _CHI = 2.0  # expansion
 _PSI = 0.5  # contraction
@@ -163,49 +165,55 @@ def nelder_mead(
         n = sim.shape[-1]
     sim, fsim = _order(sim, fsim)
 
-    while True:
-        live = ~_converged(sim, fsim, xatol, fatol) & (it < maxiter)
-        if not bool(live.any()):  # the one host read of an iteration
-            break
-        best, worst = sim[:, 0], sim[:, -1]
-        xbar = sim[:, :-1].sum(dim=1) / n
-        xr = (1 + _RHO) * xbar - _RHO * worst
-        xe = _fused_mul_add(1 + _RHO * _CHI, xbar, -_RHO * _CHI * worst)
-        xc = _fused_mul_add(1 + _PSI * _RHO, xbar, -_PSI * _RHO * worst)
-        xcc = (1 - _PSI) * xbar + _PSI * worst
-        shrunk = best[:, None] + _SIGMA * (sim - best[:, None])
-        points = torch.cat([torch.stack([xr, xe, xc, xcc], dim=1), shrunk], dim=1)
-        fall, auxall = call(points)  # one objective call for all n+5 points
-        nfev = nfev + torch.where(live, points.shape[1], 0)
-        aux_sum = aux_sum + _sel(live, auxall.sum(dim=1), torch.zeros_like(aux_sum))
-        fxr, fxe, fxc, fxcc = fall[:, 0], fall[:, 1], fall[:, 2], fall[:, 3]
-        f0, f_2, f_1 = fsim[:, 0], fsim[:, -2], fsim[:, -1]
+    live = ~_converged(sim, fsim, xatol, fatol) & (it < maxiter)
+    with span("nm.live_read"):
+        go = bool(live.any())
+    while go:
+        with span("nm.iter"):
+            count("nm.lanes_evaluated", B)
+            count("nm.lanes_live", live)
+            best, worst = sim[:, 0], sim[:, -1]
+            xbar = sim[:, :-1].sum(dim=1) / n
+            xr = (1 + _RHO) * xbar - _RHO * worst
+            xe = _fused_mul_add(1 + _RHO * _CHI, xbar, -_RHO * _CHI * worst)
+            xc = _fused_mul_add(1 + _PSI * _RHO, xbar, -_PSI * _RHO * worst)
+            xcc = (1 - _PSI) * xbar + _PSI * worst
+            shrunk = best[:, None] + _SIGMA * (sim - best[:, None])
+            points = torch.cat([torch.stack([xr, xe, xc, xcc], dim=1), shrunk], dim=1)
+            fall, auxall = call(points)  # one objective call for all n+5 points
+            nfev = nfev + torch.where(live, points.shape[1], 0)
+            aux_sum = aux_sum + _sel(live, auxall.sum(dim=1), torch.zeros_like(aux_sum))
+            fxr, fxe, fxc, fxcc = fall[:, 0], fall[:, 1], fall[:, 2], fall[:, 3]
+            f0, f_2, f_1 = fsim[:, 0], fsim[:, -2], fsim[:, -1]
 
-        # scipy's _minimize_neldermead decision tree, as selections
-        take_xe = (fxr < f0) & (fxe < fxr)
-        take_xr = ((fxr < f0) & ~(fxe < fxr)) | ((fxr >= f0) & (fxr < f_2))
-        inside = (fxr >= f0) & (fxr >= f_2)
-        take_xc = inside & (fxr < f_1) & (fxc <= fxr)
-        take_xcc = inside & (fxr >= f_1) & (fxcc < f_1)
-        doshrink = inside & (((fxr < f_1) & ~(fxc <= fxr))
-                             | ((fxr >= f_1) & ~(fxcc < f_1)))
+            # scipy's _minimize_neldermead decision tree, as selections
+            take_xe = (fxr < f0) & (fxe < fxr)
+            take_xr = ((fxr < f0) & ~(fxe < fxr)) | ((fxr >= f0) & (fxr < f_2))
+            inside = (fxr >= f0) & (fxr >= f_2)
+            take_xc = inside & (fxr < f_1) & (fxc <= fxr)
+            take_xcc = inside & (fxr >= f_1) & (fxcc < f_1)
+            doshrink = inside & (((fxr < f_1) & ~(fxc <= fxr))
+                                 | ((fxr >= f_1) & ~(fxcc < f_1)))
 
-        new_last = _sel(take_xe, xe, _sel(take_xr, xr, _sel(take_xc, xc,
-                                                             _sel(take_xcc, xcc, worst))))
-        new_flast = torch.where(take_xe, fxe, torch.where(take_xr, fxr, torch.where(
-            take_xc, fxc, torch.where(take_xcc, fxcc, f_1))))
-        sim1 = torch.cat([sim[:, :-1], new_last[:, None]], dim=1)
-        fsim1 = torch.cat([fsim[:, :-1], new_flast[:, None]], dim=1)
-        # shrink step, selected where needed
-        shrunk_sim = torch.cat([best[:, None], shrunk[:, 1:]], dim=1)
-        shrunk_f = torch.cat([f0[:, None], fall[:, 5:]], dim=1)
-        sim1 = _sel(doshrink, shrunk_sim, sim1)
-        fsim1 = _sel(doshrink, shrunk_f, fsim1)
+            new_last = _sel(take_xe, xe, _sel(take_xr, xr, _sel(take_xc, xc,
+                                                                 _sel(take_xcc, xcc, worst))))
+            new_flast = torch.where(take_xe, fxe, torch.where(take_xr, fxr, torch.where(
+                take_xc, fxc, torch.where(take_xcc, fxcc, f_1))))
+            sim1 = torch.cat([sim[:, :-1], new_last[:, None]], dim=1)
+            fsim1 = torch.cat([fsim[:, :-1], new_flast[:, None]], dim=1)
+            # shrink step, selected where needed
+            shrunk_sim = torch.cat([best[:, None], shrunk[:, 1:]], dim=1)
+            shrunk_f = torch.cat([f0[:, None], fall[:, 5:]], dim=1)
+            sim1 = _sel(doshrink, shrunk_sim, sim1)
+            fsim1 = _sel(doshrink, shrunk_f, fsim1)
 
-        sim1, fsim1 = _order(sim1, fsim1)
-        sim = _sel(live, sim1, sim)
-        fsim = _sel(live, fsim1, fsim)
-        it = it + live.to(it.dtype)
+            sim1, fsim1 = _order(sim1, fsim1)
+            sim = _sel(live, sim1, sim)
+            fsim = _sel(live, fsim1, fsim)
+            it = it + live.to(it.dtype)
+            live = ~_converged(sim, fsim, xatol, fatol) & (it < maxiter)
+            with span("nm.live_read"):
+                go = bool(live.any())  # the one host read of an iteration
 
     res = NMResult(x=sim[:, 0], fun=fsim[:, 0], nit=it + 1,
                    converged=_converged(sim, fsim, xatol, fatol), nfev=nfev,
@@ -242,6 +250,7 @@ class SolveResult:
         return repr([self.x, self.llh])
 
 
+@spanned("solve")
 def solve(lik, tol: float = 1e-4, global_opt: bool = False, seed: int = 0,
           trace: bool = False, n_hops: int = 100) -> SolveResult:
     """Reference ``Solve`` (MigrationInference.py:718-733): maximise the llh.

@@ -17,6 +17,8 @@ from typing import Sequence
 import numpy as np
 from scipy.special import gammaln
 
+from ..spans import spanned
+
 
 class ModelError(ValueError):
     """Raised for invalid model configuration (reference: PrintError + exit)."""
@@ -66,6 +68,7 @@ class ModelSpec:
         )
 
 
+@spanned("spec.build")
 def build_spec(
     times: Sequence[float],
     lambdas: Sequence[Sequence[float]],

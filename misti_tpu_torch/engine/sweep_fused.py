@@ -47,9 +47,11 @@ import torch
 
 from ..config import LLH_DTYPE, resolve_device, resolve_dtype
 from ..kernels.correction_fused import fused_correction, sweep_inputs
+from ..spans import span
 from .likelihood import (
     SpectrumBasis,
     _pulse_update_3state,
+    hand_launches,
     jafs_spectrum,
     last_rate,
     multinomial_const,
@@ -274,38 +276,51 @@ def build_fused_sweep(
         return sweep_inputs(mib, pub, lhp, tp)
 
     def llh_fn(st_idx, params, data7):
-        params, take, tp, lhp, mib, pub = lanes(st_idx, params)
-        B = params.shape[0]
-        data7 = torch.as_tensor(data7).to(device=dev, dtype=ct).reshape(B, 7)
-        nonneg = (params >= 0).all(-1)
+        with span("llh") as sp:
+            launched = hand_launches() if sp else 0
+            llh = _llh(st_idx, params, data7)
+            if sp:
+                sp.set(lanes=llh.shape[0], hand_launches=hand_launches() - launched)
+        return llh
+
+    def _llh(st_idx, params, data7):
+        with span("llh.lanes"):
+            params, take, tp, lhp, mib, pub = lanes(st_idx, params)
+            B = params.shape[0]
+            data7 = torch.as_tensor(data7).to(device=dev, dtype=ct).reshape(B, 7)
+            nonneg = (params >= 0).all(-1)
 
         # pre-split correction sweep: the kernel, per-lane tables
-        if correct:
-            lc_pre, p_after = fused_correction(mib, pub, lhp, tp, **corr_opts)
-            nc = p_after[:, -1].sum(-1)  # padding rows after the split are no-ops
-            ok = torch.where(take("pad_pre")[..., None], torch.ones_like(lc_pre), lc_pre)
-            valid = (ok > 0).all(-1).all(-1)
-        else:
-            lc_pre = lhp
-            nc = carry_no_corr(pub).sum(-1)
-            valid = torch.ones(B, dtype=torch.bool, device=dev)
+        with span("llh.correct"):
+            if correct:
+                lc_pre, p_after = fused_correction(mib, pub, lhp, tp, **corr_opts)
+                nc = p_after[:, -1].sum(-1)  # padding rows after the split are no-ops
+                ok = torch.where(take("pad_pre")[..., None], torch.ones_like(lc_pre), lc_pre)
+                valid = (ok > 0).all(-1).all(-1)
+            else:
+                lc_pre = lhp
+                nc = carry_no_corr(pub).sum(-1)
+                valid = torch.ones(B, dtype=torch.bool, device=dev)
 
-        tq = take("t_post")
-        lc_post, nc_fin = post_split_fit(nc, take("lh_post"), tq, cpfit=cpfit)
-        lam_last = last_rate(nc_fin, take("lh_last"))
-        if smooth:
-            lc_pre = smooth_rates(lc_pre, take("smooth_w"))
-        lc = torch.cat([lc_pre, lc_post, torch.stack([lam_last, lam_last], dim=-1)[:, None]],
-                       dim=1)
+        with span("llh.post_split"):
+            tq = take("t_post")
+            lc_post, nc_fin = post_split_fit(nc, take("lh_post"), tq, cpfit=cpfit)
+            lam_last = last_rate(nc_fin, take("lh_last"))
+            if smooth:
+                lc_pre = smooth_rates(lc_pre, take("smooth_w"))
+            lc = torch.cat([lc_pre, lc_post, torch.stack([lam_last, lam_last], dim=-1)[:, None]],
+                           dim=1)
 
-        is_s = take("is_sample")
-        sample_at = [is_s[:, t] if t in sample_rows else None for t in range(s_max)]
-        rebase = (take("s_of") == sd) if rebase_any else None
-        jafs_raw = jafs_spectrum(basis, lc, mib, pub, tp, tq, take("catmask"), sample_at,
-                                 rebase, pulse_site)
-        llh, _, pos = multinomial_llh(jafs_raw, data7, multinomial_const(data7, unfolded),
-                                      unfolded)
-        return torch.where(nonneg & valid & pos, llh, torch.full_like(llh, -float("inf")))
+        with span("llh.spectrum"):
+            is_s = take("is_sample")
+            sample_at = [is_s[:, t] if t in sample_rows else None for t in range(s_max)]
+            rebase = (take("s_of") == sd) if rebase_any else None
+            jafs_raw = jafs_spectrum(basis, lc, mib, pub, tp, tq, take("catmask"), sample_at,
+                                     rebase, pulse_site)
+        with span("llh.multinomial"):
+            llh, _, pos = multinomial_llh(jafs_raw, data7, multinomial_const(data7, unfolded),
+                                          unfolded)
+            return torch.where(nonneg & valid & pos, llh, torch.full_like(llh, -float("inf")))
 
     shape_key = _shape_key(
         "fused-sweep-torch-v1", S, s_max, n_post, n_par, n_opt_mi, sd, bool(correct),
