@@ -119,6 +119,7 @@ RM_REPLACES = "misti_tpu/kernels/expm.py:277"
 # expm_action stands for the JAX package's spectrum sub-step loop (an XLA
 # while loop of matvecs, no pallas_call): one launch per interval
 EA_SOURCE = "misti_tpu_torch/kernels/csrc/expm_action.cu"
+SP_SOURCE = "misti_tpu_torch/kernels/csrc/spectrum.cu"
 EA_REPLACES = "misti_tpu/kernels/expm.py:235"
 # post_fit stands for the JAX package's post-split stage (plain XLA inside
 # its compiled likelihood, no pallas_call): one launch per objective call
@@ -419,13 +420,49 @@ def kernel_inputs(rng, s, B, *, mig, pulse, per_lane, dtype, device):
     return torch.tensor(inp, dtype=dtype, device=device).contiguous()
 
 
+def capture_spectrum(fn):
+    """Run ``fn()`` and return the arguments of its first spectrum
+    (``jafs_spectrum``: one launch of the spectrum kernel on the card)."""
+    from misti_tpu_torch.engine import likelihood as lk
+    from misti_tpu_torch.engine import sweep_fused as sf
+
+    mods, seen = (lk, sf), []
+    origs = [m.jafs_spectrum for m in mods]
+
+    def rec(*a):
+        seen.append(a)
+        return origs[0](*a)
+
+    for m in mods:
+        m.jafs_spectrum = rec
+    try:
+        fn()
+    finally:
+        for m, o in zip(mods, origs):
+            m.jafs_spectrum = o
+    return seen[0]
+
+
+def per_interval(fn):
+    """Replay the first spectrum of ``fn()`` through its per-interval path
+    (`jafs_spectrum_plain`: ``expm_action`` per interval, ``row_matmul``
+    for the other products), where the captures below find those kernels'
+    instances: the main path's one-launch spectrum calls neither."""
+    from misti_tpu_torch.engine import likelihood as lk
+
+    args = capture_spectrum(fn)
+    return lambda: lk.jafs_spectrum_plain(*args)
+
+
 def capture_row_matmul(fn, shape=(44, 8)):
-    """Run ``fn()`` and return the arguments of its first ``row_matmul``
-    product with a ``shape`` matrix (default the collapse map, once per
-    likelihood call): that instance at a path's shapes and values."""
+    """Run the per-interval spectrum of ``fn()`` and return the arguments of
+    its first ``row_matmul`` product with a ``shape`` matrix (default the
+    collapse map, once per spectrum): that instance at a path's shapes and
+    values."""
     from misti_tpu_torch.engine import likelihood as lk
 
     orig, seen = lk.row_matmul, []
+    replay = per_interval(fn)
 
     def rec(v, K, cs=None):
         if not seen and tuple(K.shape) == tuple(shape):
@@ -434,19 +471,21 @@ def capture_row_matmul(fn, shape=(44, 8)):
 
     lk.row_matmul = rec
     try:
-        fn()
+        replay()
     finally:
         lk.row_matmul = orig
     return seen[0]
 
 
 def capture_expm_action(fn, n: int = 44, pick: int = 24):
-    """Run ``fn()`` and return (args, kwargs) of its ``pick``-th spectrum
-    interval (``expm_action_pair`` call) at ``n`` states, the last if there
-    are fewer: the kernel's instance at a path's shapes and values."""
+    """Run the per-interval spectrum of ``fn()`` and return (args, kwargs)
+    of its ``pick``-th interval (``expm_action_pair`` call) at ``n`` states,
+    the last if there are fewer: the kernel's instance at a path's shapes
+    and values."""
     from misti_tpu_torch.engine import likelihood as lk
 
     orig, seen, count = lk.expm_action_pair, [], [0]
+    replay = per_interval(fn)
 
     def rec(*a, **kw):
         if a[4].shape[-1] == n:
@@ -457,14 +496,115 @@ def capture_expm_action(fn, n: int = 44, pick: int = 24):
 
     lk.expm_action_pair = rec
     try:
-        fn()
+        replay()
     finally:
         lk.expm_action_pair = orig
     return seen[0]
 
 
-def expm_action_record(ea, torch, name, captured, launches):
-    """``expm_action`` on one instance of a path: held against its plain
+def spectrum_ops(basis, inp) -> float:
+    """Operations the spectrum needs on these inputs: each interval's
+    series and projection (`expm_action_ops`, each lane's own sub-steps),
+    the collapse (2 * 44 * 8 a lane), the last interval's elimination and
+    back substitution of the augmented (8, 9) system (2/3 * 8^3 + 3 * 8^2)
+    and its projection (2 * 8 * 7), the ancient map where the sample enters
+    (2 * 44 * 44 a lane) and the sums of the terms (7 a term)."""
+    import torch
+
+    from misti_tpu_torch.kernels import expm_action as ea
+
+    lc, mi, _, T_pre, T_post, _, sample_at, rebase, _ = inp
+    B, s, n_post = lc.shape[0], T_pre.shape[1], T_post.shape[1]
+    ops = 0.0
+    for t in range(s):
+        coeffs = torch.cat([lc[:, t], mi[:, t]], dim=-1)
+        ops += ea.expm_action_ops(basis.sp2, coeffs, basis.norms2, T_pre[:, t], Q=7)
+    for t in range(n_post):
+        ops += ea.expm_action_ops(basis.sp1, lc[:, s + t, :1], basis.norms1, T_post[:, t], Q=7)
+    lanes = lambda m: 0 if m is None else B if m is True else int(m.sum())  # noqa: E731
+    maps = sum(lanes(m) for m in sample_at) + lanes(rebase)
+    return (ops + B * (2 * 44 * 8 + (2 * 8**3) // 3 + 3 * 8**2 + 2 * 8 * 7
+                       + 7 * (s + n_post)) + maps * 2 * 44 * 44)
+
+
+def spectrum_record(torch, name, captured, launches):
+    """The one-launch spectrum on one instance of a path: held against its
+    plain version on the card (the per-interval path, `jafs_spectrum_plain`:
+    rtol 1e-12, NaN masks equal, and the sums of the terms and the carried
+    state bitwise where no pulse enters), each prefix of SUB_WIDTHS lanes
+    bitwise as in the whole batch, timed beside the per-interval path, and
+    held to its bound (`spectrum_ops` over the FP64 rate; bytes: the inputs
+    once, the spectrum out)."""
+    from misti_tpu_torch.engine import likelihood as lk
+    from misti_tpu_torch.kernels import spectrum as ksp
+
+    basis, *inp = captured
+    a = ksp.pack_spectrum(basis, *inp)
+    B = a.B
+    parts = torch.empty((B, 3, 8), dtype=torch.float64, device=inp[0].device)
+    run = lambda: ksp.spectrum_kernel(basis, a)  # noqa: E731
+    plain = lambda: lk.jafs_spectrum_plain(basis, *inp)  # noqa: E731
+    got = ksp.spectrum_kernel(basis, a, parts=parts)
+    pp = {}
+    want = lk.jafs_spectrum_plain(basis, *inp, parts=pp)
+    err = check_close(name, got, want, 1e-12, 0.0)
+    pulsed = a.pulse_site is not None
+    if not pulsed:
+        for row, key in ((0, "pre"), (1, "post")):
+            require(pp[key] is None or same_bits(parts[:, row, :7], pp[key]),
+                    f"{name}: the {key}-split terms' sum is not the per-interval path's")
+        require(same_bits(parts[:, 2], pp["p8"]),
+                f"{name}: the carried state is not the per-interval path's")
+    lc, mi, pu, tp, tq, cm, sa, rb, ps = inp
+    for w in SUB_WIDTHS:
+        if w < B:
+            def cut(x):
+                return x[:w] if torch.is_tensor(x) and x.dim() and x.shape[0] == B else x
+
+            part = lk.jafs_spectrum(basis, *(cut(x) for x in (lc, mi, pu, tp, tq, cm)),
+                                    [cut(v) for v in sa], cut(rb), ps)
+            require(same_bits(part, got[:w]),
+                    f"{name}: the first {w} lanes differ from their rows of the {B}-lane batch")
+    k_ms = cuda_ms(run, 20)
+    p_ms = cuda_ms(plain, 3)
+    ops = spectrum_ops(basis, inp)
+    nbytes = sum((x.numel() if x.stride(0) else x[:1].numel()) * x.element_size() for x in (
+        a.lc, a.mi, a.pu, a.t_pre, a.t_post, a.catmask)) + got.numel() * got.element_size()
+    t_ops = ops / PEAK_OPS["float64"]
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    rec = {"name": name, "route": "cuda", "source": SP_SOURCE, "replaces": "none (the host's "
+           "per-interval loop of jafs_spectrum_plain)", "launches": launches,
+           "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+           "bound_ms": max(t_ops, t_bytes) * 1e3,
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes", "library_ms": None}
+    rec["share_of_bound"] = rec["bound_ms"] / k_ms
+    timed_record(rec, run, 20, plain, 3)
+    rec["plain_device_ms"], rec["plain_host_us"] = rec.pop("library_device_ms"), rec.pop(
+        "library_host_us")
+    rec.pop("library_device_ms_by")
+    log(f"{name} at B = {B}, s = {a.s}, n_post = {a.n_post}, pulses {pulsed}: {k_ms:.4f} ms "
+        f"(device {rec['device_ms']:.4f} ms by {rec['device_ms_by']}, host "
+        f"{rec['host_us']:.1f} us), the per-interval path {p_ms:.4f} ms (device "
+        f"{rec['plain_device_ms']:.4f} ms, host {rec['plain_host_us']:.1f} us), bound "
+        f"{rec['bound_ms']:.5f} ms ({rec['bound_by']}; {ops:.3e} ops, {nbytes} bytes), "
+        f"{rec['bound_ms'] / rec['device_ms']:.1%} of device_ms, max|d| {err:.3e}, "
+        f"{launches} launches on the path; widths {[w for w in SUB_WIDTHS if w < B]} bitwise "
+        f"as in the batch")
+    return rec
+
+
+def off_main_path(name, rm, ea, rm_before=0, ea_before=0):
+    """Neither per-interval kernel launched on the main path, whose
+    spectrum is one launch of the spectrum kernel."""
+    moved = (rm.row_matmul.launches - rm_before, ea.expm_action.launches - ea_before)
+    require(moved == (0, 0), f"{name}: row_matmul and expm_action launched {moved} times on "
+                             f"the main path")
+
+
+def expm_action_record(ea, torch, name, captured):
+    """``expm_action`` on one instance of a path (off the main path, whose
+    spectrum is one launch: the instance of the per-interval spectrum
+    replayed on the path's inputs): held against its plain
     version (the same sparse series in torch ops: rtol 1e-6 / atol 1e-9 in
     float64, NaN masks equal; whether bitwise is logged), each prefix of
     SUB_WIDTHS lanes bitwise equal to its rows of the whole batch, timed
@@ -517,7 +657,7 @@ def expm_action_record(ea, torch, name, captured, launches):
     t_ops = ops / PEAK_OPS["float64"]
     t_bytes = nbytes / HBM_BYTES_PER_S
     rec = {"name": name, "route": "cuda", "source": EA_SOURCE, "replaces": EA_REPLACES,
-           "launches": launches, "max_abs_err": max(errs), "ms": k_ms, "plain_ms": p_ms,
+           "on_main_path": False, "max_abs_err": max(errs), "ms": k_ms, "plain_ms": p_ms,
            "bound_ms": max(t_ops, t_bytes) * 1e3,
            "bound_by": "operations" if t_ops >= t_bytes else "bytes", "library_ms": lib_ms}
     rec["share_of_bound"] = rec["bound_ms"] / k_ms
@@ -532,13 +672,14 @@ def expm_action_record(ea, torch, name, captured, launches):
         f"bound {rec['bound_ms']:.5f} ms ({rec['bound_by']}; {ops:.3e} ops, {nbytes} bytes), "
         f"{rec['share_of_bound']:.1%} of bound ({rec['bound_ms'] / rec['device_ms']:.1%} of "
         f"device_ms), max|d| {max(errs):.3e}, bitwise equal to the plain version {bitwise}, "
-        f"{launches} launches on the path; widths "
+        f"off the main path; widths "
         f"{[w for w in SUB_WIDTHS if w < B]} bitwise as in the batch")
     return rec
 
 
-def row_matmul_record(rm, torch, name, args, launches):
-    """``row_matmul`` (float64) on one instance of a path: held against its
+def row_matmul_record(rm, torch, name, args):
+    """``row_matmul`` (float64) on one instance of a path (off the main
+    path, as `expm_action_record`'s): held against its
     plain version (rtol 1e-6 / atol 1e-9), each prefix of SUB_WIDTHS lanes
     bitwise equal to its rows of the whole batch, timed beside the plain
     version and one library call (``torch.matmul`` without weights,
@@ -568,7 +709,7 @@ def row_matmul_record(rm, torch, name, args, launches):
     t_ops = ops / PEAK_OPS["float64"]
     t_bytes = nbytes / HBM_BYTES_PER_S
     rec = {"name": name, "route": "cuda", "source": RM_SOURCE, "replaces": RM_REPLACES,
-           "launches": launches, "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+           "on_main_path": False, "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
            "bound_ms": max(t_ops, t_bytes) * 1e3,
            "bound_by": "operations" if t_ops >= t_bytes else "bytes", "library_ms": lib_ms}
     rec["share_of_bound"] = rec["bound_ms"] / k_ms
@@ -580,7 +721,7 @@ def row_matmul_record(rm, torch, name, args, launches):
         f"{rec['library_device_ms_by']}, host {rec['library_host_us']:.1f} us), bound "
         f"{rec['bound_ms']:.5f} ms "
         f"({rec['bound_by']}; {ops:.3e} ops, {nbytes} bytes), {rec['share_of_bound']:.1%} of "
-        f"bound, max|d| {err:.3e}, {launches} launches on the path; widths "
+        f"bound, max|d| {err:.3e}, off the main path; widths "
         f"{[w for w in SUB_WIDTHS if w < B]} bitwise as in the batch")
     return rec
 
@@ -748,6 +889,9 @@ def phase_attrs(cf, rm, ea, torch):
     for a in ea.kernel_attrs():
         log("attrs " + json.dumps({"library": "expm_action_float64", **a}))
         require(a["local_bytes"] == 0, f"expm_action {a}: uses local memory")
+    from misti_tpu_torch.kernels import spectrum as ksp
+
+    log("attrs " + json.dumps({"library": "spectrum_float64", **ksp.kernel_attrs()}))
     log("attrs " + json.dumps({"library": "row_matmul_float64", "n": 44, "m": 44,
                                **rm.kernel_attrs()}))
     for dtype in (torch.float32, torch.float64):
@@ -934,6 +1078,7 @@ def phase_main_path(cf, rm, ea, torch, dev, bench):
     from misti_tpu_torch import build_likelihood
     from misti_tpu_torch.config import LLH_DTYPE
     from misti_tpu_torch.kernels import post_fit as pf
+    from misti_tpu_torch.kernels import spectrum as ksp
 
     batch = MAIN_BATCH
     records = {}
@@ -949,6 +1094,7 @@ def phase_main_path(cf, rm, ea, torch, dev, bench):
         cf.correction_sweep.launches = 0
         rm.row_matmul.launches = 0
         ea.expm_action.launches = 0
+        ksp.spectrum_kernel.launches = 0
         pf.post_fit.launches = 0
         t0 = time.perf_counter()
         for _ in range(reps):
@@ -956,11 +1102,11 @@ def phase_main_path(cf, rm, ea, torch, dev, bench):
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         launches = cf.correction_sweep.launches
-        rm_launches = rm.row_matmul.launches
-        ea_launches = ea.expm_action.launches
+        off_main_path(name, rm, ea)
+        sp_launches = ksp.spectrum_kernel.launches
         pf_launches = pf.post_fit.launches
-        require(rm_launches > 0, f"{name}: row_matmul never launched")
-        require(ea_launches > 0, f"{name}: expm_action never launched")
+        require(sp_launches == reps, f"{name}: the spectrum kernel launched {sp_launches} times "
+                                     f"in {reps} batches")
         require(pf_launches == reps, f"{name}: post_fit launched {pf_launches} times in {reps} "
                                      f"batches")
         if mode in ("", "ect"):
@@ -968,7 +1114,7 @@ def phase_main_path(cf, rm, ea, torch, dev, bench):
                 pf, torch, f"post_fit_{'cpfit' if spec.cpfit else 'ect'}_bench",
                 capture_post_fit(lambda: lik.llh_batch(params)), pf_launches, reps))
         if spec.cpfit and spec.correct:
-            rm_case = (lik, params, rm_launches, ea_launches)
+            rm_case = (lik, params, sp_launches)
         evals = batch * reps / dt
         # the float32 run's parameters, which float64 holds exactly: a run's
         # dtype rounds only its parameters, so the llh must be the same bits
@@ -989,10 +1135,9 @@ def phase_main_path(cf, rm, ea, torch, dev, bench):
         line = (f"main path {name}: {evals:.1f} evals/s (batch {batch}, {reps} reps, "
                 f"{dt / reps * 1e3:.2f} ms/llh_batch), the float32 run bitwise the float64 one, "
                 f"finite {int(fin32.sum())}/{batch}, argmax {am32}, correction {corr_ms:.3f} ms, "
-                f"spectrum {spec_ms:.3f} ms, sweep launches {launches}, row_matmul launches "
-                f"{rm_launches} ({rm_launches / reps:g} per llh_batch), expm_action launches "
-                f"{ea_launches} ({ea_launches / reps:g} per llh_batch), post_fit launches "
-                f"{pf_launches} (1 per llh_batch)")
+                f"spectrum {spec_ms:.3f} ms, sweep launches {launches}, spectrum launches "
+                f"{sp_launches} (1 per llh_batch), post_fit launches {pf_launches} (1 per "
+                f"llh_batch)")
         if spec.correct:
             require(launches == reps, f"{name}: sweep kernel launched {launches} times in {reps} batches")
             s = spec.splitT
@@ -1022,12 +1167,14 @@ def phase_main_path(cf, rm, ea, torch, dev, bench):
                      f"{records[name]['bound_ms']:.5f} ms ({ops:.3e} ops, {nbytes} bytes), "
                      f"work {json.dumps(work)}")
         log(line)
-    lik, params, rm_launches, ea_launches = rm_case
-    args = capture_row_matmul(lambda: lik.llh_batch(params))
-    ea_args = capture_expm_action(lambda: lik.llh_batch(params), 44, 14)
+    lik, params, sp_launches = rm_case
+    call = lambda: lik.llh_batch(params)  # noqa: E731
+    args = capture_row_matmul(call)
+    ea_args = capture_expm_action(call, 44, 14)
     return [records[k] for k in sorted(records)] + [
-        row_matmul_record(rm, torch, "row_matmul_collapse_bench", args, rm_launches),
-        expm_action_record(ea, torch, "expm_action_k2_bench", ea_args, ea_launches),
+        spectrum_record(torch, "spectrum_bench", capture_spectrum(call), sp_launches),
+        row_matmul_record(rm, torch, "row_matmul_collapse_bench", args),
+        expm_action_record(ea, torch, "expm_action_k2_bench", ea_args),
         *pf_records]
 
 
@@ -1257,6 +1404,7 @@ def phase_sweep(cf, rm, ea, torch, dev):
     from misti_tpu_torch.io import jsfs as io_jsfs
     from misti_tpu_torch.io import psmc as io_psmc
     from misti_tpu_torch.kernels import post_fit as pf
+    from misti_tpu_torch.kernels import spectrum as ksp
 
     fix = os.path.join(HERE, "tests", "fixtures")
     inp = io_psmc.read_psmc(os.path.join(fix, "sweep1.psmc"), os.path.join(fix, "sweep2.psmc"),
@@ -1277,6 +1425,7 @@ def phase_sweep(cf, rm, ea, torch, dev):
         cf.correction_sweep.launches = 0
         rm.row_matmul.launches = 0
         ea.expm_action.launches = 0
+        ksp.spectrum_kernel.launches = 0
         pf.post_fit.launches = 0
         t = time.perf_counter()
         with contextlib.redirect_stderr(buf):
@@ -1285,13 +1434,13 @@ def phase_sweep(cf, rm, ea, torch, dev):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
         launches = cf.correction_sweep.launches
-        rm_launches = rm.row_matmul.launches
-        ea_launches = ea.expm_action.launches
+        off_main_path(f"sweep {mode}", rm, ea)
+        sp_launches = ksp.spectrum_kernel.launches
         pf_launches = pf.post_fit.launches
         require(pf_launches == res.calls,
                 f"sweep {mode}: {pf_launches} post_fit launches for {res.calls} objective calls")
-        require(rm_launches > 0, f"sweep {mode}: row_matmul never launched")
-        require(ea_launches > 0, f"sweep {mode}: expm_action never launched")
+        require(sp_launches == res.calls,
+                f"sweep {mode}: {sp_launches} spectrum launches for {res.calls} objective calls")
         stages = [ln for ln in buf.getvalue().splitlines() if ln.startswith("# sweep stage")]
         for ln in stages:
             log(f"sweep {mode} {ln[2:]}")
@@ -1317,9 +1466,9 @@ def phase_sweep(cf, rm, ea, torch, dev):
         log(f"sweep {mode}: {cells} cells, {evals} llh evals (table: {int(ref['nfev'].sum())}), "
             f"{wall:.2f} s wall, {evals / wall:.1f} evals/s, {res.calls} objective calls = "
             f"{launches} kernel launches, {g}, cells with different nfev "
-            f"{int((res.nfev != ref['nfev']).sum())}; per objective call: row_matmul "
-            f"{rm_launches / res.calls:.2f}, expm_action {ea_launches / res.calls:.2f}, "
-            f"post_fit {pf_launches / res.calls:.2f} launches")
+            f"{int((res.nfev != ref['nfev']).sum())}; per objective call: spectrum "
+            f"{sp_launches / res.calls:.2f}, post_fit {pf_launches / res.calls:.2f} launches "
+            f"(row_matmul and expm_action 0)")
 
         # one Nelder-Mead iteration at the first stage's width and at the
         # narrowest stage width of this run; the per-lane kernel at the first
@@ -1362,15 +1511,17 @@ def phase_sweep(cf, rm, ea, torch, dev):
             f"post_fit 1")
         records.append(post_fit_record(pf, torch, f"post_fit_{mode}_sweep",
                                        capture_post_fit(call), pf_launches, res.calls))
+        records.append(spectrum_record(torch, f"spectrum_{mode}_sweep", capture_spectrum(call),
+                                       sp_launches))
         if mode == "cpfit":
             records.append(row_matmul_record(rm, torch, "row_matmul_collapse_sweep",
-                                             capture_row_matmul(call), rm_launches))
+                                             capture_row_matmul(call)))
             # pre-split interval 24: lanes of splits 20-24 hold T == 0 there;
             # post-split interval 30: lanes of splits 24-27 do
             records.append(expm_action_record(ea, torch, "expm_action_k2_sweep",
-                                              capture_expm_action(call, 44, 24), ea_launches))
+                                              capture_expm_action(call, 44, 24)))
             records.append(expm_action_record(ea, torch, "expm_action_k1_sweep",
-                                              capture_expm_action(call, 8, 30), ea_launches))
+                                              capture_expm_action(call, 8, 30)))
         if mode == "cpfit":
             cpfit_run = dict(res=res, wall=wall, fs=fs, points=points, st_all=st_all)
 
@@ -1466,6 +1617,7 @@ def phase_single_fit(cf, rm, ea, torch, dev):
     from misti_tpu_torch.io import mi_format
     from misti_tpu_torch.io.units import Units
     from misti_tpu_torch.kernels import post_fit as pf
+    from misti_tpu_torch.kernels import spectrum as ksp
 
     fix = os.path.join(HERE, "tests", "fixtures")
     synth = [os.path.join(fix, f) for f in ("synth1.psmc", "synth2.psmc", "synth.jsfs")]
@@ -1529,20 +1681,22 @@ def phase_single_fit(cf, rm, ea, torch, dev):
             cf.correction_sweep.launches = 0
             rm.row_matmul.launches = 0
             ea.expm_action.launches = 0
+            ksp.spectrum_kernel.launches = 0
             pf.post_fit.launches = 0
             torch.cuda.synchronize()
             rc, lines, wall = _run_cli(misti.main, argv + ["-o", out_mi])
             launches = cf.correction_sweep.launches
-            rm_launches = rm.row_matmul.launches
-            ea_launches = ea.expm_action.launches
+            off_main_path(f"north-star {name}", rm, ea)
+            sp_launches = ksp.spectrum_kernel.launches
             pf_launches = pf.post_fit.launches
-            require(rm_launches > 0, f"north-star {name}: row_matmul never launched")
-            require(ea_launches > 0, f"north-star {name}: expm_action never launched")
             require(rc == 0, f"north-star {name}: rc {rc}")
             fit = parse_fit_stdout(lines)
             calls = fit["nit"] + 1  # the simplex's calls and the -bs 0 re-evaluation
             require(launches == calls,
                     f"north-star {name}: {launches} kernel launches for {calls} objective calls")
+            require(sp_launches == calls,
+                    f"north-star {name}: {sp_launches} spectrum launches for {calls} objective "
+                    f"calls")
             d_llh = abs(fit["llh"] / ref["llh"] - 1)
             d_x = max(abs(a - b) for a, b in zip(fit["x"], ref["x"]))
             require(len(fit["x"]) == len(ref["x"]) and d_x <= 1e-3,
@@ -1582,20 +1736,21 @@ def phase_single_fit(cf, rm, ea, torch, dev):
             call = lambda: lik.llh_flags_batch(points)  # noqa: E731
             records.append(post_fit_record(pf, torch, f"post_fit_{name}_single_fit_f64",
                                            capture_post_fit(call), pf_launches, calls))
+            records.append(spectrum_record(torch, f"spectrum_{name}_single_fit_f64",
+                                           capture_spectrum(call), sp_launches))
             if name == "cpfit":
                 records.append(row_matmul_record(rm, torch, "row_matmul_collapse_single_fit_f64",
-                                                 capture_row_matmul(call), rm_launches))
+                                                 capture_row_matmul(call)))
                 records.append(expm_action_record(ea, torch, "expm_action_k2_single_fit_f64",
-                                                  capture_expm_action(call, 44, 12),
-                                                  ea_launches))
+                                                  capture_expm_action(call, 44, 12)))
             log(f"north-star {name} (float64, card): x {fit['x']} llh {fit['llh']!r}; JAX "
                 f"package x {ref['x']} llh {ref['llh']!r}; rel dllh {d_llh:.3e}, max |dx| "
                 f"{d_x:.3e}; (card, JAX) {json.dumps(counters)}; converged {fit['converged']}")
             log(f"north-star {name} timing: {wall:.3f} s wall, {calls} objective calls, "
                 f"{wall / calls * 1e3:.1f} ms per objective call, {fit['calls'] / wall:.1f} "
                 f"evals/s, {per_call} kernel launches per objective call ({n + 5} lanes), of "
-                f"them row_matmul {rm_launches / calls:.2f}, expm_action "
-                f"{ea_launches / calls:.2f} and post_fit {pf_launches / calls:.2f}; "
+                f"them spectrum {sp_launches / calls:.2f} and post_fit {pf_launches / calls:.2f} "
+                f"(row_matmul and expm_action 0); "
                 f"correction kernel at s = {s}, B = {B}, float64, shared tables: {k_ms:.4f} ms "
                 f"(device {rec['device_ms']:.4f} ms, host {rec['host_us']:.1f} us), "
                 f"plain {p_ms:.1f} ms, bound {rec['bound_ms']:.5f} ms ({rec['bound_by']}; "
@@ -1680,8 +1835,9 @@ def phase_sharded_sweep(cf, rm, ea, torch, dev, cpfit_run):
     launches, calls = summary["kernel_launches"], summary["objective_calls"]
     require(min(launches) > 0 and sum(launches) == calls["sum"],
             f"sharded sweep: kernel launches {launches} for objective calls {calls}")
-    for k in ("row_matmul_launches", "expm_action_launches"):
-        require(min(summary[k]) > 0, f"sharded sweep: {k} per rank {summary[k]}")
+    require(summary["spectrum_launches"] == launches,
+            f"sharded sweep: spectrum launches per rank {summary['spectrum_launches']}, kernel "
+            f"launches {launches}: one each per objective call")
     require(summary["post_fit_launches"] == launches,
             f"sharded sweep: post_fit launches per rank {summary['post_fit_launches']}, "
             f"kernel launches {launches}: one each per objective call")
@@ -1697,9 +1853,7 @@ def phase_sharded_sweep(cf, rm, ea, torch, dev, cpfit_run):
         f"{z['llh'].size} cells, {int(z['nfev'].sum())} llh evals, wall {wall:.2f} s with "
         f"start-up (the CLI's sweep wall {summary['wallclock_s']} s; one process, phase 6: "
         f"{cpfit_run['wall']:.2f} s), objective calls busiest rank {calls['max']} / all ranks "
-        f"{calls['sum']} (one process {one.calls}), kernel launches per rank {launches}, "
-        f"expm_action launches per rank {summary['expm_action_launches']} "
-        f"({sum(summary['expm_action_launches']) / calls['sum']:.2f} per objective call); "
+        f"{calls['sum']} (one process {one.calls}), kernel launches per rank {launches}; "
         f"against phase 6's table: {int(same.sum())}/{same.size} cells bitwise equal, max "
         f"|dllh| {d_one:.3e}, cells with different nfev {int((z['nfev'] != one.nfev).sum())}; "
         f"{g}; the CLI's summary {json.dumps(summary)}")
@@ -1736,6 +1890,7 @@ def phase_scenarios(cf, rm, ea, torch, dev):
     from misti_tpu_torch.io import jsfs as io_jsfs
     from misti_tpu_torch.io import psmc as io_psmc
     from misti_tpu_torch.kernels import post_fit as pf
+    from misti_tpu_torch.kernels import spectrum as ksp
 
     mdir = os.path.join(HERE, "tests", "fixtures", "matrix")
     with open(os.path.join(mdir, "matrix.json")) as f:
@@ -1761,6 +1916,7 @@ def phase_scenarios(cf, rm, ea, torch, dev):
     cf.correction_sweep.launches = 0
     rm.row_matmul.launches = 0
     ea.expm_action.launches = 0
+    ksp.spectrum_kernel.launches = 0
     pf.post_fit.launches = 0
     t = time.perf_counter()
     buf = io.StringIO()
@@ -1769,12 +1925,12 @@ def phase_scenarios(cf, rm, ea, torch, dev):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
     launches = cf.correction_sweep.launches
-    rm_launches = rm.row_matmul.launches
-    ea_launches = ea.expm_action.launches
+    off_main_path("scenarios", rm, ea)
+    sp_launches = ksp.spectrum_kernel.launches
     pf_launches = pf.post_fit.launches
-    require(rm_launches > 0, "scenarios: row_matmul never launched")
-    require(ea_launches > 0, "scenarios: expm_action never launched")
     calls = sum(r.calls for r in results.values())
+    require(sp_launches == calls, f"scenarios: {sp_launches} spectrum launches for {calls} "
+                                  f"objective calls")
     for ln in buf.getvalue().splitlines():
         if ln.startswith("# sweep stage"):
             log(f"scenarios {ln[2:]}")
@@ -1796,9 +1952,9 @@ def phase_scenarios(cf, rm, ea, torch, dev):
             f"{ci['ci'][1]:.6f}] (float64 reference {table[name]['split_ci_gens']}, float32 TPU "
             f"table {old[name]['split_ci_gens']})")
     log(f"scenarios: {len(results)} scenarios resident in one process, {wall:.2f} s, "
-        f"{calls} objective calls = {launches} kernel launches; per objective call: row_matmul "
-        f"{rm_launches / calls:.2f}, expm_action {ea_launches / calls:.2f}, post_fit "
-        f"{pf_launches / calls:.2f} launches")
+        f"{calls} objective calls = {launches} kernel launches; per objective call: spectrum "
+        f"{sp_launches / calls:.2f}, post_fit {pf_launches / calls:.2f} launches (row_matmul "
+        f"and expm_action 0)")
 
     # the per-lane kernel at the two-band scenario's first-stage width
     name = MATRIX_SCENARIOS[0]
@@ -1818,10 +1974,11 @@ def phase_scenarios(cf, rm, ea, torch, dev):
                           data_all.repeat_interleave(P, dim=0))
     return [_sweep_kernel_record(cf, torch, fs, points, st_all, launches,
                                  "correction_sweep_cpfit_per_lane_two_band"),
+            spectrum_record(torch, "spectrum_two_band", capture_spectrum(call), sp_launches),
             row_matmul_record(rm, torch, "row_matmul_collapse_two_band",
-                              capture_row_matmul(call), rm_launches),
+                              capture_row_matmul(call)),
             expm_action_record(ea, torch, "expm_action_k2_two_band",
-                               capture_expm_action(call, 44, 24), ea_launches),
+                               capture_expm_action(call, 44, 24)),
             post_fit_record(pf, torch, "post_fit_cpfit_two_band", capture_post_fit(call),
                             pf_launches, calls)]
 
@@ -1844,8 +2001,11 @@ def main() -> int:
     log(f"gpu: {gpu}; torch {torch.__version__} cuda {torch.version.cuda}")
 
     t0 = time.perf_counter()
+    from misti_tpu_torch.kernels import spectrum as ksp
+
     report = cf.compile_libs(cf.build_jobs(force=True) + rm.build_jobs(force=True)
-                             + ea.build_jobs(force=True) + pf.build_jobs(force=True))
+                             + ea.build_jobs(force=True) + pf.build_jobs(force=True)
+                             + ksp.build_jobs(force=True))
     log(f"build: {time.perf_counter() - t0:.1f} s wall for {len(report)} libraries")
     for lib, (secs, ptxas, _) in sorted(report.items()):
         lines = [ln.strip() for ln in ptxas.splitlines()

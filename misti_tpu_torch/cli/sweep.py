@@ -17,8 +17,7 @@ device each, ``cuda:(LOCAL_RANK % device count)``; all share the card of a
 one-card machine), and rank 0 prints the cell lines and the summary and
 writes ``-o``.  The summary then also gives ``processes``, the objective
 calls of the busiest rank and of all ranks, and each rank's kernel launches
-(the correction sweep's, ``row_matmul``'s, ``expm_action``'s and
-``post_fit``'s).
+(the correction sweep's, ``post_fit``'s and the spectrum's).
 
 Migration/pulse templates accept the literal ``ST`` for the split index,
 like the shell variable in the reference scripts.  Output: greppable
@@ -171,9 +170,8 @@ def main(argv=None) -> int:
     from ..io import psmc as io_psmc
     from ..io.units import Units
     from ..kernels.correction_fused import correction_sweep
-    from ..kernels.expm_action import expm_action
     from ..kernels.post_fit import post_fit
-    from ..kernels.row_matmul import row_matmul
+    from ..kernels.spectrum import spectrum_kernel
 
     group = init_distributed()  # None unless started by torchrun with WORLD_SIZE > 1
     world, lead = world_size(group), rank(group) == 0
@@ -261,7 +259,7 @@ def main(argv=None) -> int:
     # scenario for the summary
     for sc in scenarios:
         t_sc = time.time()
-        kernels = (correction_sweep, row_matmul, expm_action, post_fit)
+        kernels = (correction_sweep, post_fit, spectrum_kernel)
         before = [k.launches for k in kernels]
         results.update(sweep_many([sc], tol=clargs.tol, maxiter=clargs.maxiter,
                                   device=device, group=group, **stage_kw))
@@ -325,9 +323,8 @@ def main(argv=None) -> int:
             summary["processes"] = world
             summary["objective_calls"] = {"max": res.calls, "sum": res.calls_sum}
             summary["kernel_launches"] = launched[0]
-            summary["row_matmul_launches"] = launched[1]
-            summary["expm_action_launches"] = launched[2]
-            summary["post_fit_launches"] = launched[3]
+            summary["post_fit_launches"] = launched[1]
+            summary["spectrum_launches"] = launched[2]
         print(json.dumps(summary))
         matrix.append(summary)
         if clargs.fout:

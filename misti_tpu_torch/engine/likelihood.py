@@ -6,8 +6,8 @@ time intervals (MigrationInference.py:305-378 `CorrectLambdas` and :467-506
 vectors ``params (B, n_par)``: the pre-split correction is one fused sweep
 (kernels/correction_fused.py: a hand-written CUDA kernel on the card, its
 plain torch version on the CPU), the post-split fit one more
-(kernels/post_fit.py), and the spectrum torch ops over (B, ...) tensors
-with a Python loop over intervals and a kernel per interval.
+(kernels/post_fit.py), and the spectrum one more (kernels/spectrum.py; on
+the CPU torch ops over (B, ...) tensors with a Python loop over intervals).
 
 The stages after the pre-split sweep (`post_split_fit`, `last_rate`,
 `smooth_rates`, `jafs_spectrum`, `multinomial_llh`) take interval tables
@@ -36,6 +36,7 @@ from ..kernels.expm import expm_action_pair, sparse_basis
 from ..kernels.expm_action import expm_action
 from ..kernels.post_fit import post_fit
 from ..kernels.row_matmul import row_matmul
+from ..kernels.spectrum import pack_spectrum, pulse_nonzeros, spectrum_kernel
 from ..model import statespace as ss
 from ..spans import span, spanned
 from .spec import ModelSpec
@@ -44,9 +45,9 @@ _POST_OUTERS = 6  # Jacobi rounds of the ECT post-split fit
 
 
 def hand_launches() -> int:
-    """The launches of the four hand kernels so far, in this process."""
+    """The launches of the five hand kernels so far, in this process."""
     return correction_sweep.launches + expm_action.launches + post_fit.launches \
-        + row_matmul.launches
+        + row_matmul.launches + spectrum_kernel.launches
 
 
 def _pulse_update_3state(p, rate, pop: int):
@@ -172,6 +173,13 @@ class SpectrumBasis:
         # the stacked bases' nonzeros, as the spectrum's series reads them
         self.sp2 = sparse_basis(self.k2, 4)
         self.sp1 = sparse_basis(self.k1, 1)
+        # the pulse operators' nonzeros, as the spectrum kernel reads them
+        idx, coef = pulse_nonzeros(b2.pulse_coeff, b2.pulse_k)
+        self.pulse_idx = torch.as_tensor(idx, device=dev)
+        self.pulse_coef = tens(coef)
+        # the spectrum kernel's constant arguments and pulse sites, made at
+        # their first use (kernels/spectrum.py, `pack_spectrum`)
+        self.kernel_cache = {}
 
 
 def _select(mask, a, b):
@@ -187,7 +195,22 @@ def _select(mask, a, b):
 def jafs_spectrum(basis: SpectrumBasis, lc, mi, pu, T_pre, T_post, catmask,
                   sample_at, rebase, pulse_site):
     """Unnormalised 7-category spectrum, (B, 7) (JAFSpectrum,
-    MigrationInference.py:467-506).
+    MigrationInference.py:467-506), as `jafs_spectrum_plain` sets it out.
+
+    CUDA tensors go to the one-launch spectrum kernel (kernels/spectrum.py,
+    its inputs read in place), CPU tensors to `jafs_spectrum_plain`."""
+    if lc.is_cuda:
+        return spectrum_kernel(basis, pack_spectrum(basis, lc, mi, pu, T_pre, T_post, catmask,
+                                                    sample_at, rebase, pulse_site))
+    return jafs_spectrum_plain(basis, lc, mi, pu, T_pre, T_post, catmask, sample_at, rebase,
+                               pulse_site)
+
+
+def jafs_spectrum_plain(basis: SpectrumBasis, lc, mi, pu, T_pre, T_post, catmask,
+                        sample_at, rebase, pulse_site, parts: dict | None = None):
+    """Unnormalised 7-category spectrum, (B, 7) (JAFSpectrum,
+    MigrationInference.py:467-506), as a loop over intervals: the CPU's
+    path and the spectrum kernel's plain version.
 
     ``lc`` (B, s + n_post + 1, 2) holds the rates of every interval, ``mi``
     and ``pu`` (B, >= s, 2) the pre-split migration and pulse rates;
@@ -205,7 +228,9 @@ def jafs_spectrum(basis: SpectrumBasis, lc, mi, pu, T_pre, T_post, catmask,
     other product with a constant matrix is a `row_matmul`, the per-lane
     pulse operators are applied as a product and a last-axis sum, and the
     interval terms are added in order, so a lane's spectrum does not depend
-    on the batch it is evaluated in.
+    on the batch it is evaluated in.  ``parts``, a dict, gets the sums of
+    the pre- and post-split terms ("pre", "post": None where there is no
+    such interval) and the 8-state p0 before the last interval ("p8").
     """
     B = lc.shape[0]
     s, n_post = T_pre.shape[1], T_post.shape[1]
@@ -242,10 +267,14 @@ def jafs_spectrum(basis: SpectrumBasis, lc, mi, pu, T_pre, T_post, catmask,
     m_last = ss.one_pop_matrix(lc[:, s + n_post, 0], basis.b1)
     occ_last, _ = torch.linalg.solve_ex(m_last, -p0)
     jafs = row_matmul(occ_last, basis.jsfs1)
-    if jafs_post:
-        jafs = _sum_in_order(jafs_post) + jafs
-    if jafs_pre:
-        jafs = _sum_in_order(jafs_pre) + jafs
+    pre = _sum_in_order(jafs_pre) if jafs_pre else None
+    post = _sum_in_order(jafs_post) if jafs_post else None
+    if parts is not None:
+        parts.update(pre=pre, post=post, p8=p0)
+    if post is not None:
+        jafs = post + jafs
+    if pre is not None:
+        jafs = pre + jafs
     return jafs
 
 

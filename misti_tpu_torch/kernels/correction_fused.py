@@ -702,10 +702,12 @@ def compile_libs(jobs, check: bool = True) -> dict:
 
 
 def stale(jobs) -> list:
-    """The `compile_libs` jobs whose library is missing or older than its source."""
+    """The `compile_libs` jobs whose library is missing or older than its
+    source or a header beside it (csrc/*.cuh)."""
 
     def fresh(out, src):
-        return out.exists() and out.stat().st_mtime >= src.stat().st_mtime
+        return out.exists() and all(out.stat().st_mtime >= f.stat().st_mtime
+                                    for f in (src, *src.parent.glob("*.cuh")))
 
     return [j for j in jobs if not fresh(Path(j[0]), Path(j[1]))]
 

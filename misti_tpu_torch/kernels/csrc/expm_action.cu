@@ -1,32 +1,22 @@
 // The spectrum's per-interval action (E p0, N1 p0) of a CTMC generator, for
-// Hopper (sm_90a): one launch per interval, a warp per lane.  Float64 only:
-// the likelihood's dtype (config.LLH_DTYPE).
+// Hopper (sm_90a): one launch per interval, a warp per lane, on the
+// spectrum's per-interval path (the plain version of the one-launch spectrum,
+// spectrum.cu).  Float64 only: the likelihood's dtype (config.LLH_DTYPE).
 //
-// For lane b with rates coeffs[b, :] (C of them), the generator is
-// M_b = sum_c coeffs[b, c] * B_c over a constant stacked basis, and over an
-// interval of length t[b] this computes E p0 = e^{M t} p0 and
-// N1 p0 = int_0^t e^{M u} p0 du (row vectors, p0 (B, n)) by m Taylor
-// sub-steps of degree `degree`: m = clamp(ceil(||M t||_1 / theta), 1, cap)
-// (with ||M t||_1 bounded by sum_c |coeffs_c| * ||B_c||_1 * t), h = t / m,
-// cs = coeffs * h, G = sum_c cs_c B_c, and per sub-step
-//   term = p; ev = p; pv = p
-//   for k = 1..degree: term = (term @ G^T) / k; ev += term; pv += term / (k+1)
-//   p = ev; acc += h * pv.
-// A lane past theta * cap (or with NaN rates) returns NaN in both; a lane
-// with t == 0 returns p0 and 0 (NaN where p0 is not finite).  Optionally the
-// epilogue projects N1 p0 onto the JSFS categories:
+// For lane b with rates coeffs[b, :] (C of them) and interval length t[b]
+// this runs one interval of the series in expm_series.cuh (shared with the
+// one-launch spectrum, spectrum.cu, so that each interval's values are the
+// same in both) and writes E p0 and N1 p0.  Optionally the epilogue projects
+// N1 p0 onto the JSFS categories:
 // proj[b, q] = (sum_k acc[b, k] * jsfs[k, q]) * catmask[b, q].
 //
 // Replaces: kernels/expm.py `expm_action_pair_plain` as a loop of torch ops
 // (the JAX package's XLA loop, misti_tpu/kernels/expm.py:235-310; no
 // pallas_call).
 //
-// The basis comes as its nonzeros (kernels/expm.py `SparseBasis`): output
-// state j sums term[src[j, l]] * G[slot[j, l]] over l < L, padded with a
-// zero term entry (src = n) and a zero slot (slot = nnz).  At n = 44 the
-// four bases' union has 196 nonzeros (L = 5), at n = 8 it has 18 (L = 3):
-// the work per term is that of the lane's own sparse generator, not C dense
-// (n, n) matvecs over the stacked basis.
+// At n = 44 the four bases' union has 196 nonzeros (L = 5), at n = 8 it
+// has 18 (L = 3): the work per term is that of the lane's own sparse
+// generator, not C dense (n, n) matvecs over the stacked basis.
 //
 // Design.  What bounds it is latency: per lane a chain of m * degree
 // dependent matvecs of a few hundred flops.  So many independent lanes are
@@ -48,32 +38,16 @@
 // this does.
 //
 // A lane's value does not depend on its batch, and each value is the one
-// the plain version gives on the card: it forms G in the same order (a
-// product, then for each further basis a product and an add), sums each
-// column's nonzeros in order, and rounds each add and product on its own
-// (__*_rn: never contracted into FMAs), as torch's elementwise ops do;
-// torch's division by a Python scalar is its product with the reciprocal.
-// The projection is row_matmul's FMA chain (the plain version calls it).
+// the plain version gives on the card (the order and roundings are set out
+// in expm_series.cuh).  The projection is row_matmul's FMA chain (the plain
+// version calls it).
 
-#include <cuda_runtime.h>
+#include "expm_series.cuh"
 
 namespace {
 
-using T = double;
 constexpr int kThreads = 128;  // 4 warps a block
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxDegree = 32;
-
-__device__ __forceinline__ T add_rn(T a, T b) { return __dadd_rn(a, b); }
-__device__ __forceinline__ T mul_rn(T a, T b) { return __dmul_rn(a, b); }
-__device__ __forceinline__ T div_rn(T a, T b) { return __ddiv_rn(a, b); }
-__device__ __forceinline__ T quiet_nan() { return __longlong_as_double(0x7ff8000000000000LL); }
-
-// threads per lane (a warp at n = 44, n at n = 8), states per thread
-template <int N>
-constexpr int kGroup = N > 16 ? 32 : N;
-template <int N>
-constexpr int kSpt = (N + kGroup<N> - 1) / kGroup<N>;
 template <int N>
 constexpr int kLanes = kThreads / kGroup<N>;  // lanes per block
 
@@ -101,110 +75,34 @@ expm_action_kernel(const int* __restrict__ src, const int* __restrict__ slot,
 
   // 1/k, k = 0..degree+1, per warp; each group's zero entries
   T* inv = s_inv[tid >> 5];
-  for (int k = wl; k <= degree + 1; k += 32) inv[k] = k ? div_rn(T(1), T(k)) : T(0);
+  fill_inverses(inv, degree, wl);
   T* buf = &s_buf[grp][0][0];
   if (g == 0) buf[N] = buf[kBuf + N] = T(0);
   __syncwarp();
   if (lane >= B) return;
 
-  // the lane's sub-step count m, step h and scaled rates cs = coeffs * h
-  // (kernels/expm.py `substep_counts`), computed alike by its threads
   const T* cl = coeffs + lane * c_ld;
-  const T t = tv[lane * t_ld];
-  T nb = mul_rn(fabs(cl[0]), norms[0]);
+  T rate[C];
 #pragma unroll
-  for (int c = 1; c < C; ++c) nb = add_rn(nb, mul_rn(fabs(cl[c]), norms[c]));
-  nb = mul_rn(nb, t);
-  const bool over = !(nb <= nb_cap);  // NaN rates too
-  if (over) nb = T(0);
-  const T mf = fmin(fmax(ceil(mul_rn(nb, inv_theta)), T(1)), T(cap));
-  const int m = (int)mf;
-  const T h = div_rn(t, mf);
-
-  int js[SPT];
+  for (int c = 0; c < C; ++c) rate[c] = cl[c];
   T p[SPT], acc[SPT];
-  bool finite = true;
 #pragma unroll
-  for (int s = 0; s < SPT; ++s) {
-    js[s] = g + s * G;
-    p[s] = js[s] < N ? p0[lane * N + js[s]] : T(0);
-    acc[s] = T(0);
-    finite = finite && isfinite(p[s]);
-  }
-  const bool all_finite = __all_sync(mask, finite);
-
+  for (int s = 0; s < SPT; ++s) p[s] = g + s * G < N ? p0[lane * N + g + s * G] : T(0);
   int phase = 0;
-  if (!over && !(t == T(0) && all_finite)) {
-    // this thread's states' generator entries and their sources, formed once
-    T cs[C];
-#pragma unroll
-    for (int c = 0; c < C; ++c) cs[c] = mul_rn(cl[c], h);
-    T gv[SPT][L];
-    int gi[SPT][L];
-#pragma unroll
-    for (int s = 0; s < SPT; ++s) {
-#pragma unroll
-      for (int l = 0; l < L; ++l) {
-        const bool live = js[s] < N;
-        const int sl = live ? slot[js[s] * L + l] : nnz;
-        gi[s][l] = live ? src[js[s] * L + l] : N;
-        T v = T(0);
-        if (sl < nnz) {
-          v = mul_rn(cs[0], vals[sl]);
-#pragma unroll
-          for (int c = 1; c < C; ++c) v = add_rn(v, mul_rn(cs[c], vals[c * nnz + sl]));
-        }
-        gv[s][l] = v;
-      }
-    }
-    for (int st = 0; st < m; ++st) {
-      T term[SPT], ev[SPT], pv[SPT];
-#pragma unroll
-      for (int s = 0; s < SPT; ++s) term[s] = ev[s] = pv[s] = p[s];
-      for (int k = 1; k <= degree; ++k) {
-        T* cur = buf + phase * kBuf;
-        phase ^= 1;
-#pragma unroll
-        for (int s = 0; s < SPT; ++s)
-          if (js[s] < N) cur[js[s]] = term[s];
-        __syncwarp(mask);
-        const T ik = inv[k], ik1 = inv[k + 1];
-#pragma unroll
-        for (int s = 0; s < SPT; ++s) {
-          T a = mul_rn(cur[gi[s][0]], gv[s][0]);
-#pragma unroll
-          for (int l = 1; l < L; ++l) a = add_rn(a, mul_rn(cur[gi[s][l]], gv[s][l]));
-          term[s] = mul_rn(a, ik);
-          ev[s] = add_rn(ev[s], term[s]);
-          pv[s] = add_rn(pv[s], mul_rn(term[s], ik1));
-        }
-      }
-#pragma unroll
-      for (int s = 0; s < SPT; ++s) {
-        p[s] = ev[s];
-        acc[s] = add_rn(acc[s], mul_rn(h, pv[s]));
-      }
-    }
-  }
+  interval<N, C, L>(src, slot, vals, nnz, rate, norms, tv[lane * t_ld], inv_theta, nb_cap, cap,
+                    degree, inv, buf, phase, mask, g, p, acc);
 #pragma unroll
   for (int s = 0; s < SPT; ++s) {
-    if (over) p[s] = acc[s] = quiet_nan();
-    if (js[s] < N) {
-      ep[lane * N + js[s]] = p[s];
-      n1p[lane * N + js[s]] = acc[s];
+    const int j = g + s * G;
+    if (j < N) {
+      ep[lane * N + j] = p[s];
+      n1p[lane * N + j] = acc[s];
     }
   }
   if (proj != nullptr) {
-    // the buffer the last term did not use: every thread is past its reads
-    T* cur = buf + phase * kBuf;
-#pragma unroll
-    for (int s = 0; s < SPT; ++s)
-      if (js[s] < N) cur[js[s]] = acc[s];
-    __syncwarp(mask);
+    const T* cur = stage<N>(acc, buf, phase, mask, g);
     for (int q = g; q < Q; q += G) {
-      T a = T(0);
-#pragma unroll
-      for (int i = 0; i < N; ++i) a = fma(cur[i], __ldg(jsfs + i * Q + q), a);
+      T a = fma_chain<N>(cur, 1, jsfs, Q, q);
       if (catmask != nullptr) a = mul_rn(a, catmask[lane * cm_ld + q]);
       proj[lane * Q + q] = a;
     }

@@ -5,7 +5,8 @@
 //   out[b, j] = sum_c cs[b, c] * (sum_k v[b, k] * K[k, c*m + j])
 //
 // v (B, n), K (n, C*m) and cs (B, C) row-major; cs may be null (C = 1,
-// weight 1).  On the likelihood's path these are the spectrum's products
+// weight 1).  On the spectrum's per-interval path (the plain version of the
+// one-launch spectrum, spectrum.cu) these are the spectrum's products
 // with a constant matrix: the collapse map (B, 44) @ (44, 8), the last
 // interval's (B, 8) @ (8, 7) and the ancient-sample map (B, 44) @ (44, 44);
 // the weighted form (the stacked basis, C = 4) serves the width probe.

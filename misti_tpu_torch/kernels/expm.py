@@ -1,8 +1,10 @@
 """Batched matrix exponentials and their actions for small CTMCs (torch).
 
-Only what the likelihood slice uses.  ``expm_action_pair`` is the spectrum
-sweep's hot spot: (E p0, N1 p0) by Taylor sub-stepping against a static
-stacked basis.  On the card it is one launch of the expm_action kernel per
+Only what the likelihood slice uses.  ``expm_action_pair`` is one
+interval of the spectrum's per-interval path (engine/likelihood.py
+`jafs_spectrum_plain`; on the card the main path runs the whole spectrum
+in one launch, kernels/spectrum.py): (E p0, N1 p0) by Taylor sub-stepping
+against a static stacked basis.  On the card it is one launch of the expm_action kernel per
 call (kernels/expm_action.py); its plain version
 ``expm_action_pair_plain`` forms each lane's generator once from the
 bases' nonzeros (`SparseBasis`) and multiplies each Taylor term by it over
@@ -25,6 +27,10 @@ from .expm_action import expm_action
 from .row_matmul import row_matmul
 
 _THETA_TAYLOR = 1.0  # scale so ||A||_1 <= 1: Taylor-18 truncation ~ 2e-16
+# The spectrum's series, wherever it runs (`expm_action_pair`, its plain
+# version, kernels/spectrum.py): sub-steps of norm <= THETA, Taylor degree
+# DEGREE, at most MAX_SUBSTEPS sub-steps an interval (NaN past them).
+THETA, DEGREE, MAX_SUBSTEPS = 2.0, 20, 1024
 _MAX_SQUARINGS = 30
 
 
@@ -78,8 +84,8 @@ def expm_m1(a: torch.Tensor, max_squarings: int = _MAX_SQUARINGS) -> torch.Tenso
     return phi
 
 
-def substep_counts(coeffs: torch.Tensor, basis_norms, t, theta: float = 2.0,
-                   max_substeps: int = 1024):
+def substep_counts(coeffs: torch.Tensor, basis_norms, t, theta: float = THETA,
+                   max_substeps: int = MAX_SUBSTEPS):
     """(m, overflow) of `expm_action_pair` for coeffs (..., c): the Taylor
     sub-step count per lane and the lanes past the cost cap (NaN too)."""
     t = torch.as_tensor(t, dtype=coeffs.dtype, device=coeffs.device)
@@ -182,8 +188,8 @@ def sparse_matvec(basis: SparseBasis, g: torch.Tensor, term: torch.Tensor) -> to
 
 
 def expm_action_pair_plain(basis: SparseBasis, coeffs: torch.Tensor, basis_norms,
-                           t, p0: torch.Tensor, theta: float = 2.0,
-                           degree: int = 20, max_substeps: int = 1024,
+                           t, p0: torch.Tensor, theta: float = THETA,
+                           degree: int = DEGREE, max_substeps: int = MAX_SUBSTEPS,
                            jsfs: torch.Tensor | None = None,
                            catmask: torch.Tensor | None = None):
     """(E p0, N1 p0) for M = sum_c coeffs[:, c] * B_c without forming E or N1.
@@ -231,8 +237,8 @@ def expm_action_pair_plain(basis: SparseBasis, coeffs: torch.Tensor, basis_norms
 
 
 def expm_action_pair(basis: SparseBasis, coeffs: torch.Tensor, basis_norms,
-                     t, p0: torch.Tensor, theta: float = 2.0,
-                     degree: int = 20, max_substeps: int = 1024,
+                     t, p0: torch.Tensor, theta: float = THETA,
+                     degree: int = DEGREE, max_substeps: int = MAX_SUBSTEPS,
                      jsfs: torch.Tensor | None = None,
                      catmask: torch.Tensor | None = None):
     """`expm_action_pair_plain` on the CPU; on a CUDA tensor one launch of

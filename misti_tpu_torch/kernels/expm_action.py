@@ -94,8 +94,8 @@ def expm_action(basis, coeffs: torch.Tensor, basis_norms: torch.Tensor, t,
     of (B, s, C)), ``basis_norms`` (C,), ``t`` a scalar, (1,) or (B,),
     ``p0`` (B, n); ``jsfs`` (n, Q) projects N1 p0, scaled by ``catmask``
     (Q,) or (B, Q) when given.  The launch path is kept lean (attribute
-    reads, three allocations, one ctypes call): the spectrum makes some 60
-    of these calls per objective call."""
+    reads, three allocations, one ctypes call): the spectrum's per-interval
+    path (`jafs_spectrum_plain` on the card) makes some 60 of these calls."""
     if not p0.is_cuda:
         raise ValueError(f"expm_action runs on a CUDA device, not {p0.device}")
     if p0.dtype is not _F64:

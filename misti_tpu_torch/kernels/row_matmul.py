@@ -3,7 +3,7 @@ plain version.
 
 ``row_matmul(v, K, cs)`` = sum_c cs[:, c] * (v @ K)[:, c*m:(c+1)*m]: the
 spectrum's products with its constant matrices (engine/likelihood.py
-`jafs_spectrum`: the collapse map, the last interval's JSFS projection, the
+`jafs_spectrum_plain`: the collapse map, the last interval's JSFS projection, the
 ancient-sample map; kernels/expm.py `expm_action_pair_plain`: N1 p0's
 projection) and, with ``cs``, a weighted product with the stacked basis
 (the width probe, probe.py).
@@ -80,8 +80,9 @@ def row_matmul(v: torch.Tensor, K: torch.Tensor, cs: torch.Tensor | None = None)
     """``row_matmul_plain`` on the CPU; the kernel on a CUDA tensor (raises
     on anything it does not take).  ``K`` is a constant table: it must be
     contiguous and is not copied.  The launch path is kept lean (a few
-    attribute reads, one allocation, one ctypes call): on the path it is
-    launched thrice per objective call and its device time is microseconds."""
+    attribute reads, one allocation, one ctypes call): the spectrum's
+    per-interval path launches it thrice a spectrum, and its device time is
+    microseconds."""
     if not v.is_cuda:
         if v.is_cpu:
             return row_matmul_plain(v, K, cs)

@@ -17,20 +17,26 @@ in.  It takes the sweep's first Nelder-Mead iteration (808 cells x
   stage's output in both runs (the mapped kernel input, the correction
   kernel, the post-split fit (its kernel on the card, its root solves on
   the CPU), the last rate,
-  the smoothing, each interval's ``expm_action_pair``, the last interval's
-  solve, the spectrum, the llh) and compares them on those lanes, bitwise
-  and by the largest difference; cpfit and ECT;
+  the smoothing, each interval's ``expm_action_pair`` and the last
+  interval's solve (on the CPU; on the card the spectrum is one kernel
+  launch and makes neither call), the spectrum, the llh) and compares them
+  on those lanes, bitwise and by the largest difference; cpfit and ECT;
 * evaluates each batched operation of those stages on the batch's own
   inputs, over the whole batch and over sub-batches of 6, 42 and 960 lanes,
-  and says which give a lane another value in a narrower batch.
+  and says which give a lane another value in a narrower batch: among them
+  the one-launch spectrum, and the per-interval path's operations on the
+  inputs of its first interval calls (on the card replayed through
+  `jafs_spectrum_plain`, the spectrum's plain version).
 
-``host`` splits the host time per call of the spectrum's two hand kernels'
-wrappers (`row_matmul` at the collapse map, `expm_action` at the 44-state
-basis with the projection) and of the post-split fit's (`post_fit`, cpfit,
-33 intervals of per-lane tables), at the sweep's 4848 lanes, into its
-steps, each timed alone with the host clock over 200 calls and no
-synchronise: the whole wrapper, the ctypes call that launches the kernel
-(arguments made beforehand), the output allocations and the stream
+``host`` splits the host time per call of the one-launch spectrum's
+wrapper (`spectrum_kernel`, 27 + 27 intervals of per-lane tables, and the
+packing of its inputs, `pack_spectrum`), of the per-interval path's two
+hand kernels' wrappers (`row_matmul` at the collapse map, `expm_action` at
+the 44-state basis with the projection) and of the post-split fit's
+(`post_fit`, cpfit, 33 intervals of per-lane tables), at the sweep's 4848
+lanes, into its steps, each timed alone with the host clock over 200 calls
+and no synchronise: the whole wrapper, the ctypes call that launches the
+kernel (arguments made beforehand), the output allocations and the stream
 lookup; and the same for ``torch.matmul`` of the collapse product.
 
 ``mix`` asks how the post-split fit's ECT root solves split the kernel's
@@ -55,6 +61,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import ctypes
 import io
 import json
 import os
@@ -216,21 +223,41 @@ def op_checks(fs, tr, st, params, rng_seed=0):
     basis = lk.SpectrumBasis(dev, dt)
     gen = torch.Generator(device="cpu").manual_seed(rng_seed)
     perm = torch.randperm(B, generator=gen).to(dev)
-    pre = tr.inputs["expm_action_pair[10]"][0]  # (kmat, coeffs, norms, t, p0)
-    post_key = max((k for k in tr.inputs if k.startswith("expm_action_pair")),
+    inputs = tr.inputs
+    spec_args = inputs["jafs_spectrum[0]"][0]
+    if "expm_action_pair[10]" not in inputs:
+        # the card: the spectrum is one launch; its per-interval path's
+        # calls come from replaying it through the plain version
+        sub = _Trace(keep=("expm_action_pair", "solve_ex"))
+        with sub.patched(B):
+            lk.jafs_spectrum_plain(*spec_args)
+        inputs = {**sub.inputs, **inputs}
+    pre = inputs["expm_action_pair[10]"][0]  # (kmat, coeffs, norms, t, p0)
+    post_key = max((k for k in inputs if k.startswith("expm_action_pair")),
                    key=lambda k: int(k[17:-1]))
-    post = tr.inputs[post_key][0]
+    post = inputs[post_key][0]
     v44, c4 = pre[4].contiguous(), pre[1].contiguous()
     v8, c1 = post[4].contiguous(), post[1].contiguous()
-    a8, b8 = tr.inputs["solve_ex[0]"][0]
-    psf_args, psf_kw = tr.inputs["post_split_fit[0]"]
-    sm_args = tr.inputs["smooth_rates[0]"][0]
+    a8, b8 = inputs["solve_ex[0]"][0]
+    psf_args, psf_kw = inputs["post_split_fit[0]"]
+    sm_args = inputs["smooth_rates[0]"][0]
     n1p = lk.expm_action_pair(*pre[:4], v44)[1].contiguous()
     gen_np = np.random.default_rng(rng_seed)
     terms = torch.as_tensor(gen_np.uniform(0.0, 1e-3, (27, B, 7)), dtype=dt, device=dev)
     dec = torch.as_tensor(gen_np.uniform(0.0, 0.1, (B, 30, 2)), dtype=dt, device=dev)
     pulse = lk.ss.pulse_operator(torch.as_tensor(gen_np.uniform(0.0, 0.3, B), dtype=dt,
                                                  device=dev), 1, basis.b2)
+    sb, lc, mi, pu, tp, tq, cm, sample_at, rebase, sites = spec_args
+    sample_rows = [t for t, v in enumerate(sample_at) if torch.is_tensor(v)]
+    smask = (torch.stack([sample_at[t] for t in sample_rows], -1) if sample_rows
+             else torch.zeros((B, 0), dtype=torch.bool, device=dev))
+
+    def spectrum(lc, mi, pu, tp, tq, cm, smask, rebase):
+        sa = list(sample_at)
+        for i, t in enumerate(sample_rows):
+            sa[t] = smask[:, i]
+        return lk.jafs_spectrum(sb, lc, mi, pu, tp, tq, cm, sa, rebase, sites)
+
     ancT, colT = basis.ancientT, basis.collapseT
 
     ops = {
@@ -262,11 +289,13 @@ def op_checks(fs, tr, st, params, rng_seed=0):
         "sum(-1) over 7": (lambda t: t.sum(-1), (terms[0],)),
         "cumsum dim 1 (B,30,2)": (lambda t: torch.cumsum(t, dim=1), (dec,)),
         "sum(1) (B,30,2)": (lambda t: t.sum(1), (dec,)),
+        "jafs_spectrum (the one-launch spectrum kernel on the card)": (
+            spectrum, (lc, mi, pu, tp, tq, cm, smask, rebase)),
         "expm_action_pair pre-split (the expm_action kernel on the card)": (
             lambda c, t, v: torch.cat(lk.expm_action_pair(pre[0], c, pre[2], t, v), -1),
             (c4, pre[3], v44)),
         "fit_single_pop": (lambda a, b, c: kc.fit_single_pop(a, b, c),
-                           tr.inputs["fit_single_pop[0]"][0] if "fit_single_pop[0]" in tr.inputs
+                           inputs["fit_single_pop[0]"][0] if "fit_single_pop[0]" in inputs
                            else None),
         "post_split_fit": (lambda nc, lh, t: torch.cat(
             [sf.post_split_fit(nc, lh, t, **psf_kw)[0].flatten(1),
@@ -310,7 +339,7 @@ def width_main(args, emit):
         B = st.shape[0]
         lanes = torch.arange(6 * args.cell, 6 * args.cell + 6, device=dev)
         keep = ("expm_action_pair", "solve_ex", "post_split_fit", "smooth_rates",
-                "fit_single_pop")
+                "fit_single_pop", "jafs_spectrum")
         batch, llh_b = trace_llh(fs, st, params, d7, lanes, keep)
         alone, llh_a = trace_llh(fs, st[lanes], params[lanes], d7[lanes])
         stages = compare_traces(alone, batch)
@@ -368,6 +397,35 @@ def host_main(args, emit):
 
     stream = lambda: torch._C._cuda_getCurrentRawStream(idx)  # noqa: E731
 
+    # the one-launch spectrum, 27 + 27 intervals of per-lane tables
+    from .kernels import spectrum as ksp
+
+    s, n_post = 27, 27
+    lc = tens(rng.uniform(0.5, 2.0, (B, s + n_post + 1, 2)))
+    mi = tens(rng.uniform(0.0, 1.0, (B, s, 2)))
+    pu = torch.zeros_like(mi)
+    tp = tens(rng.uniform(0.0, 0.05, (B, s)))
+    tq = tens(rng.uniform(0.0, 0.3, (B, n_post)))
+    cm = torch.ones((B, s, 7), dtype=LLH_DTYPE, device=dev)
+    sample_at = [torch.ones(B, dtype=torch.bool, device=dev)] + [None] * (s - 1)
+    inp = (lc, mi, pu, tp, tq, cm, sample_at, None, np.zeros((s, 2), dtype=bool))
+    a = ksp.pack_spectrum(basis, *inp)
+    out = lc.new_empty((B, 7))
+    fn = ksp._load()
+    c = ksp.c_args(basis, a, out)
+    steps = {"jafs_spectrum": _host_us(lambda: lk.jafs_spectrum(basis, *inp), reps),
+             "pack": _host_us(lambda: ksp.pack_spectrum(basis, *inp), reps),
+             "wrapper": _host_us(lambda: ksp.spectrum_kernel(basis, a), reps),
+             "launch": _host_us(lambda: fn(ctypes.addressof(c), idx, stream()), reps),
+             "args": _host_us(lambda: ksp.c_args(basis, a, out), reps),
+             "alloc": _host_us(lambda: lc.new_empty((B, 7)), reps),
+             "stream": _host_us(stream, reps)}
+    steps["checks_and_rest"] = (steps["wrapper"] - steps["launch"] - steps["args"]
+                                - steps["alloc"] - steps["stream"])
+    emit({"probe": "host", "kernel": "spectrum", "instance": "the whole spectrum, s = 27, "
+          "n_post = 27, per-lane tables, the sample at interval 0", "lanes": B, "reps": reps,
+          "us": steps})
+
     # row_matmul at the collapse map
     v, K = tens(rng.uniform(0.0, 1.0, (B, 44))), basis.collapseT
     out = v.new_empty((B, 8))
@@ -414,7 +472,7 @@ def host_main(args, emit):
     out = nc.new_empty((B, 2 * n + 2))
     fn = pf._load()
     a = (nc.data_ptr(), 2, 1, lh.data_ptr(), lh.stride(0), 2, 1, tq.data_ptr(), n, 1,
-         out.data_ptr(), B, n, 1, idx, stream())
+         out.data_ptr(), B, n, 1, 1, 1, 1, 1, idx, stream())  # cpfit: the launch shape 1, 1, 1, 1
     steps = {"wrapper": _host_us(lambda: pf.post_fit(nc, lh, tq, cpfit=True), reps),
              "launch": _host_us(lambda: fn(*a), reps),
              "alloc": _host_us(lambda: nc.new_empty((B, 2 * n + 2)), reps),
