@@ -38,7 +38,7 @@ from ..kernels.post_fit import post_fit
 from ..kernels.row_matmul import row_matmul
 from ..kernels.spectrum import pack_spectrum, pulse_nonzeros, spectrum_kernel
 from ..model import statespace as ss
-from ..spans import span, spanned
+from ..spans import count, span, spanned
 from .spec import ModelSpec
 
 _POST_OUTERS = 6  # Jacobi rounds of the ECT post-split fit
@@ -384,6 +384,7 @@ def build_likelihood(spec: ModelSpec, *, device=None, dtype=None) -> Likelihood:
     pu_any = spec.pu_masks.sum(0) if n_pu else np.zeros((numT, 2))
     # pulse sites: P(0) is the identity, so statically zero pulses are skipped
     pulse_site = (np.asarray(spec.pu_base) != 0) | (pu_any != 0)  # (numT, 2)
+    n_sites = int(pulse_site[:s].sum())
 
     mi_base, pu_base = tens(spec.mi_base), tens(spec.pu_base)
     mi_keep, pu_keep = tens(1.0 - mi_any), tens(1.0 - pu_any)
@@ -412,7 +413,7 @@ def build_likelihood(spec: ModelSpec, *, device=None, dtype=None) -> Likelihood:
     # -- correction (CorrectLambdas, MigrationInference.py:305-378) ---------
 
     def correct(mi, pu):
-        with span("llh.correct"):
+        with span("llh.correct") as sp:
             B = mi.shape[0]
             p0 = torch.tensor([[1.0, 0.0, 0.0], [0.0, 1.0, 0.0]], dtype=ct, device=dev)
             p0b = p0.expand(B, 2, 3)
@@ -432,6 +433,9 @@ def build_likelihood(spec: ModelSpec, *, device=None, dtype=None) -> Likelihood:
             else:
                 lc_pre, p_after = fused_correction(
                     mi[:, :s], pu[:, :s], lh_t[:s], pre_T_t, **sweep_opts)
+                sp.set(pulse=has_pulse)
+                if has_pulse:
+                    count("correction.pulse_rows", B * s)
                 pr = torch.cat([p0b.transpose(1, 2)[:, None], p_after.transpose(2, 3)], dim=1)
                 nc = p_after[:, -1].sum(-1)
                 valid = (lc_pre > 0).all(-1).all(-1)
@@ -458,7 +462,9 @@ def build_likelihood(spec: ModelSpec, *, device=None, dtype=None) -> Likelihood:
                 nonneg = (params >= 0).all(-1)
                 mi, pu = map_params(params)
             lc, pr, valid_corr = correct(mi, pu)
-            with span("llh.spectrum"):
+            with span("llh.spectrum", pulse_sites=n_sites):
+                if n_sites:
+                    count("spectrum.pulse_ops", params.shape[0] * n_sites)
                 jafs_raw = spectrum(lc, mi, pu)
             with span("llh.multinomial"):
                 llh, jafs, pos = multinomial_llh(jafs_raw, data, llh_const, spec.unfolded)

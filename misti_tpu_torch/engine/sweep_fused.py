@@ -47,7 +47,8 @@ import torch
 
 from ..config import LLH_DTYPE, resolve_device, resolve_dtype
 from ..kernels.correction_fused import fused_correction, sweep_inputs
-from ..spans import span
+from ..kernels.spectrum import pack_spectrum
+from ..spans import count, span
 from .likelihood import (
     SpectrumBasis,
     _pulse_update_3state,
@@ -79,6 +80,10 @@ class FusedSweep:
     # at the sweep's shapes
     kernel_input: callable = None
     kernel_opts: dict = None
+    # (st_idx, params) -> (basis, args): the spectrum kernel's constant
+    # tables and its packed arguments (kernels/spectrum.py `SpectrumArgs`)
+    # for these lanes, for replaying the kernel alone
+    spectrum_input: callable = None
 
 
 def _device_tables(tables: dict, device, dtype) -> dict:
@@ -220,6 +225,7 @@ def build_fused_sweep(
     # nonzero, rows where some split's ancient sample enters, a rebase at
     # the split (each lane then selects by its own table)
     pulse_site = (pu_base != 0).any(0) | (mi_masks[:, n_opt_mi:] != 0).any((0, 1))
+    n_sites = int(pulse_site.sum())
     sample_rows = tuple(int(t) for t in np.flatnonzero(is_sample.any(0)))
     rebase_any = bool(np.any(np.asarray(s_of) == sd))
     tables = _device_tables(tables_np, dev, ct)
@@ -283,20 +289,24 @@ def build_fused_sweep(
                 sp.set(lanes=llh.shape[0], hand_launches=hand_launches() - launched)
         return llh
 
-    def _llh(st_idx, params, data7):
+    def _to_spectrum(st_idx, params):
+        """The stages before the spectrum: (params, validity, the table
+        gather, the spectrum's per-lane inputs)."""
         with span("llh.lanes"):
             params, take, tp, lhp, mib, pub = lanes(st_idx, params)
             B = params.shape[0]
-            data7 = torch.as_tensor(data7).to(device=dev, dtype=ct).reshape(B, 7)
             nonneg = (params >= 0).all(-1)
 
         # pre-split correction sweep: the kernel, per-lane tables
-        with span("llh.correct"):
+        with span("llh.correct") as sp:
             if correct:
                 lc_pre, p_after = fused_correction(mib, pub, lhp, tp, **corr_opts)
                 nc = p_after[:, -1].sum(-1)  # padding rows after the split are no-ops
                 ok = torch.where(take("pad_pre")[..., None], torch.ones_like(lc_pre), lc_pre)
                 valid = (ok > 0).all(-1).all(-1)
+                sp.set(pulse=has_pulse)
+                if has_pulse:
+                    count("correction.pulse_rows", B * s_max)
             else:
                 lc_pre = lhp
                 nc = carry_no_corr(pub).sum(-1)
@@ -311,16 +321,32 @@ def build_fused_sweep(
             lc = torch.cat([lc_pre, lc_post, torch.stack([lam_last, lam_last], dim=-1)[:, None]],
                            dim=1)
 
-        with span("llh.spectrum"):
-            is_s = take("is_sample")
-            sample_at = [is_s[:, t] if t in sample_rows else None for t in range(s_max)]
-            rebase = (take("s_of") == sd) if rebase_any else None
-            jafs_raw = jafs_spectrum(basis, lc, mib, pub, tp, tq, take("catmask"), sample_at,
-                                     rebase, pulse_site)
+        return params, nonneg & valid, take, (lc, mib, pub, tp, tq)
+
+    def spectrum_args(take, lc, mib, pub, tp, tq):
+        """`jafs_spectrum`'s arguments for the lanes of ``take``."""
+        is_s = take("is_sample")
+        sample_at = [is_s[:, t] if t in sample_rows else None for t in range(s_max)]
+        rebase = (take("s_of") == sd) if rebase_any else None
+        return (basis, lc, mib, pub, tp, tq, take("catmask"), sample_at, rebase, pulse_site)
+
+    def _llh(st_idx, params, data7):
+        params, valid, take, per_lane = _to_spectrum(st_idx, params)
+        B = params.shape[0]
+        with span("llh.spectrum", pulse_sites=n_sites):
+            if n_sites:
+                count("spectrum.pulse_ops", B * n_sites)
+            jafs_raw = jafs_spectrum(*spectrum_args(take, *per_lane))
         with span("llh.multinomial"):
+            data7 = torch.as_tensor(data7).to(device=dev, dtype=ct).reshape(B, 7)
             llh, _, pos = multinomial_llh(jafs_raw, data7, multinomial_const(data7, unfolded),
                                           unfolded)
-            return torch.where(nonneg & valid & pos, llh, torch.full_like(llh, -float("inf")))
+            return torch.where(valid & pos, llh, torch.full_like(llh, -float("inf")))
+
+    def spectrum_input(st_idx, params):
+        """The spectrum kernel's (basis, packed arguments) for these lanes."""
+        _, _, take, per_lane = _to_spectrum(st_idx, params)
+        return basis, pack_spectrum(*spectrum_args(take, *per_lane))
 
     shape_key = _shape_key(
         "fused-sweep-torch-v1", S, s_max, n_post, n_par, n_opt_mi, sd, bool(correct),
@@ -331,5 +357,5 @@ def build_fused_sweep(
         split_times=np.asarray(splits, float), n_params=n_par,
         init_params=specs[0].init_params, device=dev, dtype=dt, llh=llh_fn,
         tables=tables_np, shape_key=shape_key, kernel_input=kernel_input,
-        kernel_opts=corr_opts,
+        kernel_opts=corr_opts, spectrum_input=spectrum_input,
     )
