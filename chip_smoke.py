@@ -6,7 +6,8 @@
 Phases, each fatal on failure:
   1. build the CUDA kernels (one nvcc per library, all started together) and
      print each template instance's registers, spill bytes and resident
-     blocks per SM (an ``attrs`` line each, the post-split fit's ECT kernel
+     blocks per SM (an ``attrs`` line each; ``nm_step``'s registers and
+     spill bytes per instance; the post-split fit's ECT kernel
      at every G threads a solve and its cpfit kernel too, with resident
      clusters; a spill in a float32 instance of the correction sweep, in
      ``expm_action`` or in either ``post_fit`` kernel fails);
@@ -42,22 +43,30 @@ Phases, each fatal on failure:
      info line), with the
      kernels timed at the sweep's first-stage width, no cell left
      unconverged, that iteration's lanes bitwise the same alone, in
-     sub-batches and in the whole batch, and a small staged-vs-uninterrupted
-     ECT sweep, bitwise;
+     sub-batches and in the whole batch, the Nelder-Mead update kernel
+     (``nm_step``) launched once a stage and once an iteration, a small
+     staged-vs-uninterrupted ECT sweep with that kernel on, bitwise, and
+     bitwise the plain torch loop's sweep; then ``nm_step`` at each
+     benchmark cell's stage-1 width, a fit's and the generic instance's
+     (NM_SHAPES), float64 and float32, one iteration bitwise the plain
+     loop's, timed;
   7. the single-fit path in float64 through the port's CLIs
      (``misti_tpu_torch.cli.misti`` / ``cli.testmodel`` ``main``, default
      platform): upstream's fits of tests/test_cli.py against its .mi files
      and --debug golden, the north-star command at split 24 (cpfit, ECT, and
      cpfit with one optimised pulse) against the JAX package's CPU float64
      fits (tests/fixtures/torch_single_fit_ref.json) with per-fit timings,
-     launches per objective call and the kernels at that instance, and the
+     launches per objective call and the kernels at that instance, each fit
+     with ``nm_step`` launched once at the start and once an iteration and
+     each north-star fit's printed numbers the plain torch loop's, and the
      testmodel README oracle;
   8. the sharded sweep: phase 6's cpfit sweep through the sweep CLI as
      SHARDED_RANKS ranks of ``python -m torch.distributed.run`` on the one
      card, in the default dtype, held to phase 6's gates against the same
      table and compared with
      phase 6's one-process table (cells bitwise equal, max |dllh|, both
-     walls, each rank's objective calls and kernel launches) on the spectra
+     walls, each rank's objective calls and kernel launches, ``nm_step``'s
+     once a stage and once an iteration) on the spectra
      the ranks wrote, and the per-lane kernel at a rank's stage-1 width
      (404 cells x 6 = 2424 lanes) against its plain version;
   9. the --scenarios path: two scenarios of the 16-scenario matrix
@@ -65,8 +74,9 @@ Phases, each fatal on failure:
      through ``sweep_many`` at full width, ``--maxiter`` MATRIX_MAXITER, in
      the default dtype, with the no-migration scenario's argmax histogram
      held to the JAX package's float64 matrix reference
-     (MATRIX_jax_f64_cpu.json) and the kernels at the two-band scenario's
-     first-stage width.
+     (MATRIX_jax_f64_cpu.json), ``nm_step`` launched once a stage and once
+     an iteration of the scenario with parameters, and the kernels at the
+     two-band scenario's first-stage width.
 Every path requires each of its kernels (the correction sweep, ``row_matmul``,
 ``expm_action``, ``post_fit``) to have launched, the post-split fit exactly
 once per objective call, and prints their launches per objective call;
@@ -125,6 +135,16 @@ EA_REPLACES = "misti_tpu/kernels/expm.py:235"
 # its compiled likelihood, no pallas_call): one launch per objective call
 PF_SOURCE = "misti_tpu_torch/kernels/csrc/post_fit.cu"
 PF_REPLACES = "misti_tpu/engine/likelihood.py:328"
+# nm_step stands for the JAX package's Nelder-Mead update (jnp ops inside its
+# jitted loop, misti_tpu/engine/optimize.py; no pallas_call): one launch an
+# iteration in place of the plain torch loop's ~115
+NM_SOURCE = "misti_tpu_torch/kernels/csrc/nm_step.cu"
+# its records, (name, lanes, n, naux): each benchmark cell's stage-1 width, a
+# fit's (one lane: `solve` fits one simplex; its objective call evaluates the
+# n + 5 points), and the generic instance's at a sharded rank's width
+NM_SHAPES = (("ect_sweep", 4848, 1, 0), ("two_band_sweep", 5656, 2, 0), ("fit", 1, 1, 2),
+             ("generic_n6", 404, 6, 2))
+NM_MAXITER = 50
 # widths at which a lane's value must be bitwise what it is in the whole batch
 SUB_WIDTHS = (1, 6, 42, 960)
 # one-call profiles that count a library call's kernel launches per call
@@ -889,9 +909,13 @@ def phase_attrs(cf, rm, ea, torch):
     for a in ea.kernel_attrs():
         log("attrs " + json.dumps({"library": "expm_action_float64", **a}))
         require(a["local_bytes"] == 0, f"expm_action {a}: uses local memory")
+    from misti_tpu_torch.kernels import nm_step as knm
     from misti_tpu_torch.kernels import spectrum as ksp
 
     log("attrs " + json.dumps({"library": "spectrum_float64", **ksp.kernel_attrs()}))
+    for sdt, n, regs, local in knm.kernel_attrs():
+        log("attrs " + json.dumps({"library": "nm_step", "simplex": sdt, "n": n,
+                                   "registers": regs, "local_bytes": local}))
     log("attrs " + json.dumps({"library": "row_matmul_float64", "n": 44, "m": 44,
                                **rm.kernel_attrs()}))
     for dtype in (torch.float32, torch.float64):
@@ -1250,6 +1274,102 @@ def _sweep_kernel_record(cf, torch, fs, points, st_idx, launches, name):
     return rec
 
 
+@contextlib.contextmanager
+def plain_nelder_mead():
+    """engine/optimize.py's plain torch loop on the card too: what the
+    nm_step kernel is held to."""
+    from misti_tpu_torch.kernels import nm_step as knm
+
+    takes, knm.takes = knm.takes, (lambda *a: False)
+    try:
+        yield
+    finally:
+        knm.takes = takes
+
+
+def _same(x, y) -> bool:
+    """`same_bits`, and plain equality for bool tensors."""
+    import torch
+
+    if x.dtype == torch.bool:
+        return x.shape == y.shape and y.dtype == torch.bool and torch.equal(x, y)
+    return same_bits(x, y)
+
+
+def _nm_case(torch, dev, B, n, sdt, naux, seed):
+    """A resumable Nelder-Mead state and one objective call's values at B
+    lanes and n parameters: vertex and trial values on a few levels (ties,
+    +inf, NaN) or a quarter above them, collapsed simplexes of tied values
+    (converged: every 13th lane from the 7th), a fifth of the lanes at
+    NM_MAXITER (every 5th from the 5th), so that lane 0 is live.  Returns
+    (NMState, values (B, n+5) in float64, aux vectors (B, n+5, naux))."""
+    from misti_tpu_torch.engine.optimize import NMState
+
+    g = torch.Generator().manual_seed(seed)
+    levels = torch.tensor([-2.0, -1.0, -0.5, 0.0, 0.5, 1.0, 2.0, math.inf, math.nan],
+                          dtype=torch.float64)
+    sim = (torch.randint(-16, 17, (B, n + 1, n), generator=g) / 8.0).to(sdt)
+    sim[6::13] = sim[6::13, :1]
+    fsim = levels[torch.randint(0, len(levels), (B, n + 1), generator=g)]
+    fsim[6::13] = 0.25
+    it = torch.where(torch.arange(B) % 5 == 4, NM_MAXITER, NM_MAXITER - 1)
+    nfev = torch.randint(0, 100, (B,), generator=g)
+    aux = torch.randint(0, 5, (B, naux), generator=g).to(sdt)
+    fall = levels[torch.randint(0, len(levels), (B, n + 5), generator=g)]
+    fall = torch.where(torch.rand(B, n + 5, generator=g) < 0.3, fall + 0.25, fall)
+    auxall = torch.randint(0, 3, (B, n + 5, naux), generator=g).to(sdt)
+    state = NMState(sim=sim, fsim=fsim, it=it.to(torch.int64), nfev=nfev, aux_sum=aux)
+    return NMState(*(t.to(dev) for t in state)), fall.to(dev), auxall.to(dev)
+
+
+def nm_step_records(torch, dev):
+    """The Nelder-Mead update kernel at each benchmark cell's stage-1 width
+    and a fit's (NM_SHAPES), float64 and float32 simplexes (the values in
+    float64, as the likelihood gives them): one iteration from `_nm_case`'s
+    state, bitwise the plain loop's in the trial points, the result and the
+    state; then the step's device time and the wrapper's host time."""
+    from misti_tpu_torch.engine import optimize as opt
+    from misti_tpu_torch.kernels import nm_step as knm
+
+    records = []
+    for name, B, n, naux in NM_SHAPES:
+        for sdt in (torch.float64, torch.float32):
+            state, fall, auxall = _nm_case(torch, dev, B, n, sdt, naux, seed=B + n)
+            fun = (lambda p: (fall, auxall)) if naux else (lambda p: fall)  # noqa: E731
+            x0 = torch.zeros(B, n, dtype=sdt, device=dev)
+            runs = []
+            for plain in (False, True):
+                seen = []
+
+                def obj(points):
+                    seen.append(points.clone())
+                    return fun(points)
+
+                before = knm.nm_step.launches
+                with plain_nelder_mead() if plain else contextlib.nullcontext():
+                    res, st = opt.nelder_mead(obj, x0, state0=state, maxiter=NM_MAXITER,
+                                              naux=naux, with_state=True)
+                runs.append((res, st, seen, knm.nm_step.launches - before))
+            (rk, sk, pk, lk_), (rp, sp, pp, lp) = runs
+            require(lk_ == 2 and lp == 0, f"nm_step {name}: {lk_} / {lp} launches (kernel / plain)")
+            bad = [k for k in rp._fields if not _same(getattr(rk, k), getattr(rp, k))]
+            bad += [f"state {k}" for k in sp._fields if not _same(getattr(sk, k), getattr(sp, k))]
+            bad += [f"points {i}" for i, (a, b) in enumerate(zip(pk, pp)) if not _same(a, b)]
+            require(len(pk) == len(pp) and not bad,
+                    f"nm_step {name} {sdt}: not the plain loop's bits in {bad}")
+            run = knm.NMRun(*state, xatol=1e-4, fatol=1e-4, maxiter=NM_MAXITER)
+            step = (lambda: run.step(fall, auxall)) if naux else (lambda: run.step(fall))  # noqa
+            rec = {"name": f"nm_step_{name}_{str(sdt)[6:]}", "route": "cuda", "source": NM_SOURCE,
+                   "replaces": "the plain torch loop of engine/optimize.py nelder_mead",
+                   "lanes": B, "n": n, "naux": naux, "bitwise": True, "library_ms": None}
+            timed_record(rec, step, 50)
+            log(f"{rec['name']} at B = {B}, n = {n}, naux = {naux}: one iteration bitwise the "
+                f"plain loop's (trial points, result, state); device {rec['device_ms']:.4f} ms by "
+                f"{rec['device_ms_by']}, host {rec['host_us']:.1f} us a step")
+            records.append(rec)
+    return records
+
+
 def _nm_iteration_ms(torch, fs, cells, data, st_all, x0_all):
     """Wall of one lockstep Nelder-Mead iteration over ``cells``: the
     difference of a 4-iteration and a 1-iteration fit from the start, over 3.
@@ -1403,6 +1523,7 @@ def phase_sweep(cf, rm, ea, torch, dev):
     from misti_tpu_torch.engine.sweep_fused import build_fused_sweep
     from misti_tpu_torch.io import jsfs as io_jsfs
     from misti_tpu_torch.io import psmc as io_psmc
+    from misti_tpu_torch.kernels import nm_step as knm
     from misti_tpu_torch.kernels import post_fit as pf
     from misti_tpu_torch.kernels import spectrum as ksp
 
@@ -1422,6 +1543,7 @@ def phase_sweep(cf, rm, ea, torch, dev):
     for mode, flags, maxiter, table, old_table in SWEEP_RUNS:
         ref = np.load(os.path.join(HERE, table))
         buf = io.StringIO()
+        knm.nm_step.launches = 0
         cf.correction_sweep.launches = 0
         rm.row_matmul.launches = 0
         ea.expm_action.launches = 0
@@ -1444,6 +1566,13 @@ def phase_sweep(cf, rm, ea, torch, dev):
         stages = [ln for ln in buf.getvalue().splitlines() if ln.startswith("# sweep stage")]
         for ln in stages:
             log(f"sweep {mode} {ln[2:]}")
+        # a start launch a stage, then one an iteration: an objective call each but the first
+        nm_launches = knm.nm_step.launches
+        require(nm_launches == res.calls - 1 + len(stages),
+                f"sweep {mode}: {nm_launches} nm_step launches for {res.calls} objective calls "
+                f"in {len(stages)} stages")
+        log(f"sweep {mode}: nm_step {nm_launches} launches, {len(stages)} stages, "
+            f"{res.calls} objective calls")
         cells = res.llh.size
         require(launches == res.calls,
                 f"sweep {mode}: {launches} kernel launches for {res.calls} objective calls")
@@ -1529,20 +1658,36 @@ def phase_sweep(cf, rm, ea, torch, dev):
     # both to STAGED_MAXITER iterations (~0.5 s each at this width), bitwise
     rows = data[:8]
     kw = dict(common, cpfit=False, maxiter=STAGED_MAXITER)
+    nm_before = knm.nm_step.launches
     with contextlib.redirect_stderr(io.StringIO()):
         r1 = bootstrap.sweep(inp.times, inp.lambdas, rows, [24.0, 25.0], SWEEP_MI, (),
                              phase1_maxiter=STAGED_MAXITER, **kw)
         r2 = bootstrap.sweep(inp.times, inp.lambdas, rows, [24.0, 25.0], SWEEP_MI, (),
                              stage_caps=(4, 8, 16), **kw)
-    bitwise = (np.array_equal(r1.llh, r2.llh) and np.array_equal(r1.params, r2.params)
-               and np.array_equal(r1.nfev, r2.nfev))
+        nm_launches = knm.nm_step.launches - nm_before
+        with plain_nelder_mead():
+            r0 = bootstrap.sweep(inp.times, inp.lambdas, rows, [24.0, 25.0], SWEEP_MI, (),
+                                 phase1_maxiter=STAGED_MAXITER, **kw)
+    require(nm_launches > 0 and knm.nm_step.launches - nm_before == nm_launches,
+            f"staged sweep: {nm_launches} nm_step launches with the kernel on, "
+            f"{knm.nm_step.launches - nm_before - nm_launches} with the plain loop")
+
+    def same_run(a, b):
+        return (np.array_equal(a.llh, b.llh) and np.array_equal(a.params, b.params)
+                and np.array_equal(a.nfev, b.nfev) and np.array_equal(a.converged, b.converged))
+
+    bitwise = same_run(r1, r2)
     d = float(np.abs(r1.llh - r2.llh).max())
     require(np.array_equal(r1.converged, r2.converged), "staged sweep: converged flags differ")
     require(bitwise, f"staged sweep: not bitwise the uninterrupted sweep (max |dllh| {d:.3e})")
+    require(same_run(r1, r0), "staged sweep: the kernel's uninterrupted sweep is not the plain "
+            f"loop's (max |dllh| {float(np.abs(r1.llh - r0.llh).max()):.3e})")
     log(f"sweep staged (caps 4 8 16 {STAGED_MAXITER}) vs uninterrupted, ECT, splits 24-25 x 8 "
-        f"rows, {dt}: bitwise {bitwise}, max |dllh| {d:.3e}, cells with different nfev "
+        f"rows, {dt}, the Nelder-Mead update on the card ({nm_launches} nm_step launches): "
+        f"bitwise {bitwise}, max |dllh| {d:.3e}, cells with different nfev "
         f"{int((r1.nfev != r2.nfev).sum())}, unconverged {int((~r1.converged).sum())}, "
-        f"max nfev {int(r1.nfev.max())}")
+        f"max nfev {int(r1.nfev.max())}; the uninterrupted sweep bitwise the plain loop's")
+    records += nm_step_records(torch, dev)
     return records, cpfit_run
 
 
@@ -1616,6 +1761,7 @@ def phase_single_fit(cf, rm, ea, torch, dev):
     from misti_tpu_torch.cli import misti, testmodel
     from misti_tpu_torch.io import mi_format
     from misti_tpu_torch.io.units import Units
+    from misti_tpu_torch.kernels import nm_step as knm
     from misti_tpu_torch.kernels import post_fit as pf
     from misti_tpu_torch.kernels import spectrum as ksp
 
@@ -1629,6 +1775,7 @@ def phase_single_fit(cf, rm, ea, torch, dev):
             out_mi = os.path.join(tmp, name + ".mi")
             cf.correction_sweep.launches = 0
             pf.post_fit.launches = 0
+            knm.nm_step.launches = 0
             rc, lines, wall = _run_cli(misti.main, synth + args + ["-o", out_mi])
             launches = cf.correction_sweep.launches
             require(rc == 0, f"{name}: rc {rc}")
@@ -1636,20 +1783,28 @@ def phase_single_fit(cf, rm, ea, torch, dev):
             require(launches == fit["nit"] + 1 == pf.post_fit.launches,
                     f"{name}: {launches} kernel launches and {pf.post_fit.launches} post_fit "
                     f"launches for {fit['nit'] + 1} objective calls")
+            require(knm.nm_step.launches == fit["nit"],
+                    f"{name}: {knm.nm_step.launches} nm_step launches for {fit['nit']} "
+                    f"iterations (scipy's nit: a start launch, then one an iteration)")
             worst = _check_mi(name, mi_format.read_migration(out_mi),
                               mi_format.read_migration(os.path.join(fix, ref_file)))
             log(f"single fit {name} (float64, card): x {fit['x']} llh {fit['llh']!r}, nit "
                 f"{fit['nit']} nfev {fit['nfev']} calls {fit['calls']} corr {fit['corr_called']}/"
-                f"{fit['corr_failed']}, {launches} kernel launches, {wall:.2f} s; largest error "
+                f"{fit['corr_failed']}, {launches} kernel launches, {knm.nm_step.launches} nm_step "
+                f"launches, {wall:.2f} s; largest error "
                 f"against upstream's .mi as a share of its tolerance {json.dumps(worst)}")
 
         Units.reset()
         ref_lines = open(os.path.join(fix, "ref_debug_stdout.txt")).read().splitlines()
         cf.correction_sweep.launches = 0
         pf.post_fit.launches = 0
+        knm.nm_step.launches = 0
         rc, lines, wall = _run_cli(misti.main, synth + DEBUG_ARGS)
         launches = cf.correction_sweep.launches
         require(rc == 0, f"debug golden: rc {rc}")
+        its = [int(ln.split()[-1]) for ln in lines if ln.startswith("         Iterations:")]
+        require(knm.nm_step.launches == sum(its),
+                f"debug golden: {knm.nm_step.launches} nm_step launches for {its} iterations")
         require(pf.post_fit.launches == 3, f"debug golden: {pf.post_fit.launches} post_fit "
                                            f"launches, expected 3")
 
@@ -1683,8 +1838,10 @@ def phase_single_fit(cf, rm, ea, torch, dev):
             ea.expm_action.launches = 0
             ksp.spectrum_kernel.launches = 0
             pf.post_fit.launches = 0
+            knm.nm_step.launches = 0
             torch.cuda.synchronize()
             rc, lines, wall = _run_cli(misti.main, argv + ["-o", out_mi])
+            nm_launches = knm.nm_step.launches
             launches = cf.correction_sweep.launches
             off_main_path(f"north-star {name}", rm, ea)
             sp_launches = ksp.spectrum_kernel.launches
@@ -1697,6 +1854,17 @@ def phase_single_fit(cf, rm, ea, torch, dev):
             require(sp_launches == calls,
                     f"north-star {name}: {sp_launches} spectrum launches for {calls} objective "
                     f"calls")
+            require(nm_launches == fit["nit"],
+                    f"north-star {name}: {nm_launches} nm_step launches for {fit['nit']} "
+                    f"iterations (scipy's nit: a start launch, then one an iteration)")
+            # the same fit with the plain torch update: every printed number the same
+            # (the CLI prints floats by repr, so equal text is equal bits)
+            Units.reset()
+            with plain_nelder_mead():
+                rc0, lines0, _ = _run_cli(misti.main, argv + ["-o", out_mi + ".plain"])
+            require(rc0 == 0 and parse_fit_stdout(lines0) == fit,
+                    f"north-star {name}: the fit with the nm_step kernel is not the plain "
+                    f"loop's: {fit} vs {parse_fit_stdout(lines0) if rc0 == 0 else rc0}")
             d_llh = abs(fit["llh"] / ref["llh"] - 1)
             d_x = max(abs(a - b) for a, b in zip(fit["x"], ref["x"]))
             require(len(fit["x"]) == len(ref["x"]) and d_x <= 1e-3,
@@ -1745,7 +1913,8 @@ def phase_single_fit(cf, rm, ea, torch, dev):
                                                   capture_expm_action(call, 44, 12)))
             log(f"north-star {name} (float64, card): x {fit['x']} llh {fit['llh']!r}; JAX "
                 f"package x {ref['x']} llh {ref['llh']!r}; rel dllh {d_llh:.3e}, max |dx| "
-                f"{d_x:.3e}; (card, JAX) {json.dumps(counters)}; converged {fit['converged']}")
+                f"{d_x:.3e}; (card, JAX) {json.dumps(counters)}; converged {fit['converged']}; "
+                f"{nm_launches} nm_step launches, every printed number as the plain loop's")
             log(f"north-star {name} timing: {wall:.3f} s wall, {calls} objective calls, "
                 f"{wall / calls * 1e3:.1f} ms per objective call, {fit['calls'] / wall:.1f} "
                 f"evals/s, {per_call} kernel launches per objective call ({n + 5} lanes), of "
@@ -1841,6 +2010,11 @@ def phase_sharded_sweep(cf, rm, ea, torch, dev, cpfit_run):
     require(summary["post_fit_launches"] == launches,
             f"sharded sweep: post_fit launches per rank {summary['post_fit_launches']}, "
             f"kernel launches {launches}: one each per objective call")
+    # each rank runs every stage: a start launch a stage, then one an objective call but the first
+    stages = sum(ln.startswith("# sweep stage") for ln in stderr.splitlines())
+    require(summary["nm_step_launches"] == [c - 1 + stages for c in launches],
+            f"sharded sweep: nm_step launches per rank {summary['nm_step_launches']} for "
+            f"{launches} objective calls in {stages} stages")
     require(np.array_equal(z["data"], data),
             "sharded sweep: the ranks' spectra differ from make_bootstrap_data(seed=0)")
     conv = z["nfev"] < 2 + 6 * maxiter  # one parameter: 2 + 6 per iteration
@@ -1853,8 +2027,8 @@ def phase_sharded_sweep(cf, rm, ea, torch, dev, cpfit_run):
         f"{z['llh'].size} cells, {int(z['nfev'].sum())} llh evals, wall {wall:.2f} s with "
         f"start-up (the CLI's sweep wall {summary['wallclock_s']} s; one process, phase 6: "
         f"{cpfit_run['wall']:.2f} s), objective calls busiest rank {calls['max']} / all ranks "
-        f"{calls['sum']} (one process {one.calls}), kernel launches per rank {launches}; "
-        f"against phase 6's table: {int(same.sum())}/{same.size} cells bitwise equal, max "
+        f"{calls['sum']} (one process {one.calls}), kernel launches per rank {launches}, "
+        f"nm_step launches per rank {summary['nm_step_launches']}; against phase 6's table: {int(same.sum())}/{same.size} cells bitwise equal, max "
         f"|dllh| {d_one:.3e}, cells with different nfev {int((z['nfev'] != one.nfev).sum())}; "
         f"{g}; the CLI's summary {json.dumps(summary)}")
 
@@ -1889,6 +2063,7 @@ def phase_scenarios(cf, rm, ea, torch, dev):
     from misti_tpu_torch.engine.sweep_fused import build_fused_sweep
     from misti_tpu_torch.io import jsfs as io_jsfs
     from misti_tpu_torch.io import psmc as io_psmc
+    from misti_tpu_torch.kernels import nm_step as knm
     from misti_tpu_torch.kernels import post_fit as pf
     from misti_tpu_torch.kernels import spectrum as ksp
 
@@ -1918,6 +2093,7 @@ def phase_scenarios(cf, rm, ea, torch, dev):
     ea.expm_action.launches = 0
     ksp.spectrum_kernel.launches = 0
     pf.post_fit.launches = 0
+    knm.nm_step.launches = 0
     t = time.perf_counter()
     buf = io.StringIO()
     with contextlib.redirect_stderr(buf):
@@ -1935,6 +2111,17 @@ def phase_scenarios(cf, rm, ea, torch, dev):
         if ln.startswith("# sweep stage"):
             log(f"scenarios {ln[2:]}")
     require(launches == calls, f"scenarios: {launches} kernel launches for {calls} objective calls")
+    # per scenario with parameters: a start launch a stage, then one an objective call but the
+    # first (a scenario's stage lines start at its stage 1)
+    stages = []
+    for ln in buf.getvalue().splitlines():
+        if ln.startswith("# sweep stage"):
+            stages += [0] if ln.startswith("# sweep stage 1/") else []
+            stages[-1] += 1
+    want_nm = sum(r.calls - 1 + s for r, s in zip(results.values(), stages) if r.params.shape[-1])
+    require(len(stages) == len(results) and knm.nm_step.launches == want_nm,
+            f"scenarios: {knm.nm_step.launches} nm_step launches, {want_nm} expected from the "
+            f"stages {stages} and calls {[r.calls for r in results.values()]}")
     for name, res in results.items():
         inp, data, splits, _ = inputs[name]
         require(np.isfinite(res.llh).all(), f"scenarios {name}: non-finite llh")
@@ -1952,7 +2139,8 @@ def phase_scenarios(cf, rm, ea, torch, dev):
             f"{ci['ci'][1]:.6f}] (float64 reference {table[name]['split_ci_gens']}, float32 TPU "
             f"table {old[name]['split_ci_gens']})")
     log(f"scenarios: {len(results)} scenarios resident in one process, {wall:.2f} s, "
-        f"{calls} objective calls = {launches} kernel launches; per objective call: spectrum "
+        f"{calls} objective calls = {launches} kernel launches, {knm.nm_step.launches} nm_step "
+        f"launches; per objective call: spectrum "
         f"{sp_launches / calls:.2f}, post_fit {pf_launches / calls:.2f} launches (row_matmul "
         f"and expm_action 0)")
 
@@ -2001,11 +2189,7 @@ def main() -> int:
     log(f"gpu: {gpu}; torch {torch.__version__} cuda {torch.version.cuda}")
 
     t0 = time.perf_counter()
-    from misti_tpu_torch.kernels import spectrum as ksp
-
-    report = cf.compile_libs(cf.build_jobs(force=True) + rm.build_jobs(force=True)
-                             + ea.build_jobs(force=True) + pf.build_jobs(force=True)
-                             + ksp.build_jobs(force=True))
+    report = cf.compile_libs(cf.port_jobs(force=True))
     log(f"build: {time.perf_counter() - t0:.1f} s wall for {len(report)} libraries")
     for lib, (secs, ptxas, _) in sorted(report.items()):
         lines = [ln.strip() for ln in ptxas.splitlines()

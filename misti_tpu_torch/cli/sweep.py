@@ -17,7 +17,8 @@ device each, ``cuda:(LOCAL_RANK % device count)``; all share the card of a
 one-card machine), and rank 0 prints the cell lines and the summary and
 writes ``-o``.  The summary then also gives ``processes``, the objective
 calls of the busiest rank and of all ranks, and each rank's kernel launches
-(the correction sweep's, ``post_fit``'s and the spectrum's).
+(the correction sweep's, ``post_fit``'s, the spectrum's and the Nelder-Mead
+update's).
 
 Migration/pulse templates accept the literal ``ST`` for the split index,
 like the shell variable in the reference scripts.  Output: greppable
@@ -170,6 +171,7 @@ def main(argv=None) -> int:
     from ..io import psmc as io_psmc
     from ..io.units import Units
     from ..kernels.correction_fused import correction_sweep
+    from ..kernels.nm_step import nm_step
     from ..kernels.post_fit import post_fit
     from ..kernels.spectrum import spectrum_kernel
 
@@ -259,7 +261,7 @@ def main(argv=None) -> int:
     # scenario for the summary
     for sc in scenarios:
         t_sc = time.time()
-        kernels = (correction_sweep, post_fit, spectrum_kernel)
+        kernels = (correction_sweep, post_fit, spectrum_kernel, nm_step)
         before = [k.launches for k in kernels]
         results.update(sweep_many([sc], tol=clargs.tol, maxiter=clargs.maxiter,
                                   device=device, group=group, **stage_kw))
@@ -325,6 +327,7 @@ def main(argv=None) -> int:
             summary["kernel_launches"] = launched[0]
             summary["post_fit_launches"] = launched[1]
             summary["spectrum_launches"] = launched[2]
+            summary["nm_step_launches"] = launched[3]
         print(json.dumps(summary))
         matrix.append(summary)
         if clargs.fout:

@@ -10,7 +10,9 @@ simplex step of the whole batch is one batched likelihood evaluation.  The
 iteration loop runs on the host and reads one flag per iteration: whether any
 lane is still live.  Lanes that have converged or reached ``maxiter`` are
 frozen bitwise and their counters stand still, so a lockstep fit equals B
-standalone fits.
+standalone fits.  On the card the simplex update around each objective call
+is one launch of a hand kernel (kernels/nm_step.py), bitwise the torch loop
+here, which CPU tensors take.
 
 Infinite objectives (llh = -inf failures) are ordinary large values, as in
 scipy; convergence also needs a finite best vertex.
@@ -26,6 +28,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
+from ..kernels import nm_step
 from ..spans import count, span, spanned
 
 _RHO = 1.0  # reflection
@@ -163,6 +166,9 @@ def nelder_mead(
         sim, fsim = state0.sim, state0.fsim
         aux_sum, it, nfev = state0.aux_sum, state0.it, state0.nfev
         n = sim.shape[-1]
+    if nm_step.takes(sim, fsim, it, nfev, aux_sum):
+        return _finish(*_iterate_on_card(fun, naux, sim, fsim, it, nfev, aux_sum, xatol, fatol,
+                                         maxiter), with_state)
     sim, fsim = _order(sim, fsim)
 
     live = ~_converged(sim, fsim, xatol, fatol) & (it < maxiter)
@@ -215,12 +221,45 @@ def nelder_mead(
             with span("nm.live_read"):
                 go = bool(live.any())  # the one host read of an iteration
 
-    res = NMResult(x=sim[:, 0], fun=fsim[:, 0], nit=it + 1,
-                   converged=_converged(sim, fsim, xatol, fatol), nfev=nfev,
+    return _finish(sim, fsim, it, nfev, aux_sum, _converged(sim, fsim, xatol, fatol),
+                   with_state)
+
+
+def _finish(sim, fsim, it, nfev, aux_sum, converged, with_state):
+    """`nelder_mead`'s return value from its final state."""
+    res = NMResult(x=sim[:, 0], fun=fsim[:, 0], nit=it + 1, converged=converged, nfev=nfev,
                    aux_sum=aux_sum)
     if with_state:
         return res, NMState(sim=sim, fsim=fsim, it=it, nfev=nfev, aux_sum=aux_sum)
     return res
+
+
+def _iterate_on_card(fun, naux, sim, fsim, it, nfev, aux_sum, xatol, fatol, maxiter):
+    """`nelder_mead`'s iterations with the simplex update on the card: one
+    launch of the hand kernel (kernels/nm_step.py) orders the start state
+    and writes the first trial points, then one per iteration updates every
+    lane from the objective's values and writes the next points, bitwise
+    the plain loop.  The host reads the count of live lanes once an
+    iteration.  Returns the final (sim, fsim, it, nfev, aux_sum,
+    converged)."""
+    B = sim.shape[0]
+    run = nm_step.NMRun(sim, fsim, it, nfev, aux_sum, xatol=xatol, fatol=fatol,
+                        maxiter=maxiter)
+    with span("nm.live_read"):
+        live = run.live_lanes()
+    while live:
+        with span("nm.iter"):
+            count("nm.lanes_evaluated", B)
+            count("nm.lanes_live", live)
+            count("nm.hand_steps", 1)
+            out = fun(run.points)  # one objective call for all n+5 points
+            if naux:
+                run.step(*out)
+            else:
+                run.step(out)
+            with span("nm.live_read"):
+                live = run.live_lanes()  # the one host read of an iteration
+    return run.sim, run.fsim, run.it, run.nfev, run.aux_sum, run.conv
 
 
 class SolveResult:

@@ -720,6 +720,28 @@ def build_jobs(variants=None, force: bool = False) -> list:
     return jobs if force else stale(jobs)
 
 
+def port_jobs(force: bool = False) -> list:
+    """The nvcc jobs of every hand kernel library of the port (the sweep
+    kernels' four and one each of the others); without ``force`` only the
+    stale ones."""
+    from . import expm_action, nm_step, post_fit, row_matmul, spectrum
+
+    return [j for m in (expm_action, nm_step, post_fit, row_matmul, spectrum)
+            for j in m.build_jobs(force)] + build_jobs(force=force)
+
+
+_BUILD_LOCK = threading.Lock()
+
+
+def build_stale() -> dict:
+    """Build every stale library of the port, all started together: a
+    kernel's first use on a cold checkout builds them all in about the time
+    of the slowest, and no later first use waits for nvcc.  Returns
+    `compile_libs`'s report; raises on a failed build."""
+    with _BUILD_LOCK:
+        return compile_libs(port_jobs())
+
+
 def build(variants=None, force: bool = False) -> dict:
     """Compile the sweep kernels, all started together.  Returns {library
     name: (seconds, ptxas report, ok)}; raises on a failed build."""
@@ -748,7 +770,7 @@ def _load(dtype: torch.dtype, cpfit: bool) -> SimpleNamespace:
     key = (dtype, cpfit)
     with _LIB_LOCK:
         if key not in _LIBS:
-            build([key])
+            build_stale()
             _LIBS[key] = bind(_lib_path(dtype, cpfit))
         return _LIBS[key]
 

@@ -22,7 +22,7 @@ from pathlib import Path
 
 import torch
 
-from .correction_fused import BUILD_DIR, compile_libs, stale
+from .correction_fused import BUILD_DIR, build_stale, stale
 
 _CSRC = Path(__file__).resolve().parent / "csrc" / "expm_action.cu"
 _LIB_PATH = BUILD_DIR / "expm_action_f64.so"
@@ -43,7 +43,7 @@ def build_jobs(force: bool = False) -> list:
 def _load():
     with _LIB_LOCK:
         if "lib" not in _LIBS:
-            compile_libs(build_jobs())
+            build_stale()
             lib = ctypes.CDLL(str(_LIB_PATH))
             fn = lib.misti_expm_action
             P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong

@@ -32,7 +32,7 @@ from pathlib import Path
 
 import torch
 
-from .correction_fused import BUILD_DIR, compile_libs, stale
+from .correction_fused import BUILD_DIR, build_stale, stale
 
 _CSRC = Path(__file__).resolve().parent / "csrc" / "post_fit.cu"
 _LIB_PATH = BUILD_DIR / "post_fit_f64.so"
@@ -93,7 +93,7 @@ def _ect_shape(B: int, n: int, group: int | None, resident: int) -> tuple:
 def _load():
     with _LIB_LOCK:
         if "fn" not in _LIBS:
-            compile_libs(build_jobs())
+            build_stale()
             lib = ctypes.CDLL(str(_LIB_PATH))
             fn = lib.misti_post_fit
             P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong

@@ -27,7 +27,7 @@ from pathlib import Path
 
 import torch
 
-from .correction_fused import BUILD_DIR, compile_libs, stale
+from .correction_fused import BUILD_DIR, build_stale, stale
 
 _CSRC = Path(__file__).resolve().parent / "csrc" / "row_matmul.cu"
 _LIB_PATH = BUILD_DIR / "row_matmul_f64.so"
@@ -54,7 +54,7 @@ def build_jobs(force: bool = False) -> list:
 def _load():
     with _LIB_LOCK:
         if "fn" not in _LIBS:
-            compile_libs(build_jobs())
+            build_stale()
             lib = ctypes.CDLL(str(_LIB_PATH))
             fn = lib.misti_row_matmul
             fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]

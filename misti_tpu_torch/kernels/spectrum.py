@@ -28,7 +28,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from .correction_fused import BUILD_DIR, compile_libs, stale
+from .correction_fused import BUILD_DIR, build_stale, stale
 from .expm import DEGREE, MAX_SUBSTEPS, THETA
 
 _CSRC = Path(__file__).resolve().parent / "csrc" / "spectrum.cu"
@@ -182,7 +182,7 @@ class _Args(ctypes.Structure):
 def _load():
     with _LIB_LOCK:
         if "fn" not in _LIBS:
-            compile_libs(build_jobs())
+            build_stale()
             lib = ctypes.CDLL(str(_LIB_PATH))
             fn = lib.misti_spectrum
             fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
