@@ -9,20 +9,18 @@ Phases, each fatal on failure:
      blocks per SM (an ``attrs`` line each; ``nm_step``'s registers and
      spill bytes per instance; the post-split fit's ECT kernel
      at every G threads a solve and its cpfit kernel too, with resident
-     clusters; a spill in a float32 instance of the correction sweep, in
-     ``expm_action`` or in either ``post_fit`` kernel fails);
+     clusters; a spill in either ``post_fit`` kernel fails; the correction
+     sweep's instances are logged, not gated: they used local memory when
+     first measured);
   2. each variant of the correction sweep against its plain torch version
-     on the card, in float64 and float32, at s = 28 intervals and 512
-     lanes; ``row_matmul`` (float64 only) at each of the spectrum's products
-     and ``expm_action`` (float64 only) at both of the spectrum's bases
-     (per-lane interval lengths with zeros, runaway lanes, a NaN in a p0 at
-     t == 0), and ``post_fit`` (the post-split fit, float64 only) in both
+     on the card, at s = 28 intervals and 512 lanes; ``row_matmul`` at each
+     of the spectrum's products, and ``post_fit`` (the post-split fit) in both
      residual modes with shared and per-lane tables (T == 0 rows, rates on
      both sides of the raw-rate guard at 100, x = lam T around 1/4, a NaN
      lane; and a per-lane case of 200 intervals, two a warp), at every G
      threads a solve bitwise the same, with every prefix of SUB_WIDTHS
-     lanes bitwise what it is in the whole batch, and float32 operands
-     refused;
+     lanes bitwise what it is in the whole batch; each built in float64
+     only, float32 operands refused;
   3. the main path at full size -- the bench workload (64 intervals, split
      28, one band, 4096 candidates) through ``build_likelihood(...).llh_batch``
      for cpfit, ECT and trueEPS -- with launch counts, timings, and the
@@ -77,9 +75,10 @@ Phases, each fatal on failure:
      (MATRIX_jax_f64_cpu.json), ``nm_step`` launched once a stage and once
      an iteration of the scenario with parameters, and the kernels at the
      two-band scenario's first-stage width.
-Every path requires each of its kernels (the correction sweep, ``row_matmul``,
-``expm_action``, ``post_fit``) to have launched, the post-split fit exactly
-once per objective call, and prints their launches per objective call;
+Every path requires each of its kernels (the correction sweep, the spectrum,
+``post_fit``) to have launched and ``row_matmul`` not at all, the spectrum
+and the post-split fit exactly once per objective call, and prints their
+launches per objective call;
 phases 3, 6, 7 and 9 hold ``post_fit`` against its plain version on the
 real inputs of one objective call and record that instance, at every G
 bitwise the same (and, where G > 1, timed at G = 1 beside it), with its
@@ -119,18 +118,14 @@ SEED = 0
 KERNEL_S, KERNEL_B = 28, 512
 MAIN_BATCH = 4096
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
-PEAK_OPS = {"float32": 67e12, "float64": 34e12}  # non-tensor-core FP rates, H100 SXM
+PEAK_FP64 = 34e12  # non-tensor-core FP64 rate, H100 SXM
 SOURCE = "misti_tpu_torch/kernels/csrc/correction_sweep.cu"
 REPLACES = "misti_tpu/kernels/correction_pallas.py:798"
 # row_matmul stands for the JAX package's spectrum matvec, an XLA dot (no
 # pallas_call): on the card it keeps a lane's value independent of its batch
 RM_SOURCE = "misti_tpu_torch/kernels/csrc/row_matmul.cu"
 RM_REPLACES = "misti_tpu/kernels/expm.py:277"
-# expm_action stands for the JAX package's spectrum sub-step loop (an XLA
-# while loop of matvecs, no pallas_call): one launch per interval
-EA_SOURCE = "misti_tpu_torch/kernels/csrc/expm_action.cu"
 SP_SOURCE = "misti_tpu_torch/kernels/csrc/spectrum.cu"
-EA_REPLACES = "misti_tpu/kernels/expm.py:235"
 # post_fit stands for the JAX package's post-split stage (plain XLA inside
 # its compiled likelihood, no pallas_call): one launch per objective call
 PF_SOURCE = "misti_tpu_torch/kernels/csrc/post_fit.cu"
@@ -361,12 +356,6 @@ def timed_record(rec, kernel, reps: int, library=None, library_reps: int = 1):
     return rec
 
 
-def tolerance(dtype):
-    """(rtol, atol, peak FP rate) of a kernel instance of this dtype."""
-    f64 = str(dtype) == "torch.float64"
-    return (1e-6, 1e-9, PEAK_OPS["float64"]) if f64 else (1e-4, 1e-6, PEAK_OPS["float32"])
-
-
 def check_close(name, got, want, rtol, atol):
     """Finite entries within atol + rtol*|want|; NaN and +-inf masks equal.
     Returns the max abs error over finite entries."""
@@ -404,8 +393,8 @@ def lanes_off(got, want, rel=1e-6) -> int:
     return int(off.any(0).any(0).sum())
 
 
-def kernel_inputs(rng, s, B, *, mig, pulse, per_lane, dtype, device):
-    """(7, s, B) sweep input on the bench workload's grid: T, lh from the
+def kernel_inputs(rng, s, B, *, mig, pulse, per_lane, device):
+    """(7, s, B) float64 sweep input on the bench workload's grid: T, lh from the
     first s intervals; per-lane migration rates (1 in 8 lanes without);
     optional pulses; optional per-lane tables with T == 0 padding rows."""
     import torch
@@ -437,7 +426,7 @@ def kernel_inputs(rng, s, B, *, mig, pulse, per_lane, dtype, device):
         P1[4] = rng.uniform(0.0, 0.3, B)
         P0[12] = rng.uniform(0.0, 0.2, B)
     inp = np.stack([T, L0, L1, M0, M1, P0, P1])
-    return torch.tensor(inp, dtype=dtype, device=device).contiguous()
+    return torch.tensor(inp, dtype=torch.float64, device=device).contiguous()
 
 
 def capture_spectrum(fn):
@@ -465,9 +454,10 @@ def capture_spectrum(fn):
 
 def per_interval(fn):
     """Replay the first spectrum of ``fn()`` through its per-interval path
-    (`jafs_spectrum_plain`: ``expm_action`` per interval, ``row_matmul``
-    for the other products), where the captures below find those kernels'
-    instances: the main path's one-launch spectrum calls neither."""
+    (`jafs_spectrum_plain`: ``expm_action_pair_plain`` per interval,
+    ``row_matmul`` for the products with constant matrices), where
+    `capture_row_matmul` finds that kernel's instance: the main path's
+    one-launch spectrum calls neither."""
     from misti_tpu_torch.engine import likelihood as lk
 
     args = capture_spectrum(fn)
@@ -494,31 +484,6 @@ def capture_row_matmul(fn, shape=(44, 8)):
         replay()
     finally:
         lk.row_matmul = orig
-    return seen[0]
-
-
-def capture_expm_action(fn, n: int = 44, pick: int = 24):
-    """Run the per-interval spectrum of ``fn()`` and return (args, kwargs)
-    of its ``pick``-th interval (``expm_action_pair`` call) at ``n`` states,
-    the last if there are fewer: the kernel's instance at a path's shapes
-    and values."""
-    from misti_tpu_torch.engine import likelihood as lk
-
-    orig, seen, count = lk.expm_action_pair, [], [0]
-    replay = per_interval(fn)
-
-    def rec(*a, **kw):
-        if a[4].shape[-1] == n:
-            if count[0] <= pick:
-                seen[:] = [(a, kw)]
-            count[0] += 1
-        return orig(*a, **kw)
-
-    lk.expm_action_pair = rec
-    try:
-        replay()
-    finally:
-        lk.expm_action_pair = orig
     return seen[0]
 
 
@@ -552,9 +517,10 @@ def spectrum_record(torch, name, captured, launches):
     plain version on the card (the per-interval path, `jafs_spectrum_plain`:
     rtol 1e-12, NaN masks equal, and the sums of the terms and the carried
     state bitwise where no pulse enters), each prefix of SUB_WIDTHS lanes
-    bitwise as in the whole batch, timed beside the per-interval path, and
-    held to its bound (`spectrum_ops` over the FP64 rate; bytes: the inputs
-    once, the spectrum out)."""
+    bitwise as in the whole batch, timed beside one call of the per-interval
+    path (its series in torch ops, a launch per op: too slow to profile or
+    repeat), and held to its bound (`spectrum_ops` over the FP64 rate;
+    bytes: the inputs once, the spectrum out)."""
     from misti_tpu_torch.engine import likelihood as lk
     from misti_tpu_torch.kernels import spectrum as ksp
 
@@ -586,11 +552,11 @@ def spectrum_record(torch, name, captured, launches):
             require(same_bits(part, got[:w]),
                     f"{name}: the first {w} lanes differ from their rows of the {B}-lane batch")
     k_ms = cuda_ms(run, 20)
-    p_ms = cuda_ms(plain, 3)
+    p_ms = cuda_ms(plain, 1)
     ops = spectrum_ops(basis, inp)
     nbytes = sum((x.numel() if x.stride(0) else x[:1].numel()) * x.element_size() for x in (
         a.lc, a.mi, a.pu, a.t_pre, a.t_post, a.catmask)) + got.numel() * got.element_size()
-    t_ops = ops / PEAK_OPS["float64"]
+    t_ops = ops / PEAK_FP64
     t_bytes = nbytes / HBM_BYTES_PER_S
     rec = {"name": name, "route": "cuda", "source": SP_SOURCE, "replaces": "none (the host's "
            "per-interval loop of jafs_spectrum_plain)", "launches": launches,
@@ -598,14 +564,10 @@ def spectrum_record(torch, name, captured, launches):
            "bound_ms": max(t_ops, t_bytes) * 1e3,
            "bound_by": "operations" if t_ops >= t_bytes else "bytes", "library_ms": None}
     rec["share_of_bound"] = rec["bound_ms"] / k_ms
-    timed_record(rec, run, 20, plain, 3)
-    rec["plain_device_ms"], rec["plain_host_us"] = rec.pop("library_device_ms"), rec.pop(
-        "library_host_us")
-    rec.pop("library_device_ms_by")
+    timed_record(rec, run, 20)
     log(f"{name} at B = {B}, s = {a.s}, n_post = {a.n_post}, pulses {pulsed}: {k_ms:.4f} ms "
         f"(device {rec['device_ms']:.4f} ms by {rec['device_ms_by']}, host "
-        f"{rec['host_us']:.1f} us), the per-interval path {p_ms:.4f} ms (device "
-        f"{rec['plain_device_ms']:.4f} ms, host {rec['plain_host_us']:.1f} us), bound "
+        f"{rec['host_us']:.1f} us), the per-interval path {p_ms:.4f} ms, bound "
         f"{rec['bound_ms']:.5f} ms ({rec['bound_by']}; {ops:.3e} ops, {nbytes} bytes), "
         f"{rec['bound_ms'] / rec['device_ms']:.1%} of device_ms, max|d| {err:.3e}, "
         f"{launches} launches on the path; widths {[w for w in SUB_WIDTHS if w < B]} bitwise "
@@ -613,93 +575,18 @@ def spectrum_record(torch, name, captured, launches):
     return rec
 
 
-def off_main_path(name, rm, ea, rm_before=0, ea_before=0):
-    """Neither per-interval kernel launched on the main path, whose
-    spectrum is one launch of the spectrum kernel."""
-    moved = (rm.row_matmul.launches - rm_before, ea.expm_action.launches - ea_before)
-    require(moved == (0, 0), f"{name}: row_matmul and expm_action launched {moved} times on "
-                             f"the main path")
-
-
-def expm_action_record(ea, torch, name, captured):
-    """``expm_action`` on one instance of a path (off the main path, whose
-    spectrum is one launch: the instance of the per-interval spectrum
-    replayed on the path's inputs): held against its plain
-    version (the same sparse series in torch ops: rtol 1e-6 / atol 1e-9 in
-    float64, NaN masks equal; whether bitwise is logged), each prefix of
-    SUB_WIDTHS lanes bitwise equal to its rows of the whole batch, timed
-    beside the plain version and one library call
-    (``torch.linalg.matrix_exp`` of the (B, 2n, 2n) block generators
-    [[M t, t I], [0, 0]], which hold e^{Mt} and N1), and held to its bound
-    (`expm_action_ops`, the work the function needs, over the FP64 rate,
-    `expm_action_bytes` over HBM)."""
-    from misti_tpu_torch.kernels import expm as kexpm
-
-    from misti_tpu_torch.engine.likelihood import SpectrumBasis
-
-    a, kw = captured
-    basis, coeffs, norms, t, p0 = a
-    require(p0.dtype == torch.float64, f"{name}: expm_action runs in float64, not {p0.dtype}")
-    rtol, atol = 1e-6, 1e-9
-    B, n = p0.shape
-    C = coeffs.shape[1]
-    cm = kw.get("catmask")
-    Q = kw["jsfs"].shape[1] if kw.get("jsfs") is not None else 0
-    run = lambda: ea.expm_action(*a, **kw)  # noqa: E731
-    plain = lambda: kexpm.expm_action_pair_plain(*a, **kw)  # noqa: E731
-    got, want = run(), plain()
-    errs = [check_close(f"{name} {o}", g, w, rtol, atol)
-            for o, g, w in zip(("E p0", "N1 p0", "projection"), got, want) if g is not None]
-    bitwise = all(same_bits(g, w) for g, w in zip(got, want) if g is not None)
-    per_lane_t = t.numel() == B and B > 1
-    for w in SUB_WIDTHS:
-        if w < B:
-            kw_w = dict(kw, catmask=cm[:w]) if cm is not None and cm.dim() == 2 else kw
-            part = ea.expm_action(basis, coeffs[:w], norms, t[:w] if per_lane_t else t, p0[:w],
-                                  **kw_w)
-            require(all(same_bits(x, y[:w]) for x, y in zip(part, got) if x is not None),
-                    f"{name}: the first {w} lanes differ from their rows of the {B}-lane batch")
-    k_ms = cuda_ms(run, 20)
-    p_ms = cuda_ms(plain, 3)
-    tt = (t if per_lane_t else t.reshape(-1)[:1].expand(B)).to(p0.dtype)
-    dense = SpectrumBasis(p0.device, p0.dtype)
-    kmat = dense.k2 if n == dense.k2.shape[0] else dense.k1
-    gen = torch.einsum("bc,kcm->bkm", coeffs * tt[:, None], kmat.view(n, C, n))
-    aug = torch.zeros((B, 2 * n, 2 * n), dtype=p0.dtype, device=p0.device)
-    aug[:, :n, :n] = gen
-    aug[:, n:, :n] = tt[:, None, None] * torch.eye(n, dtype=p0.dtype, device=p0.device)
-    library = lambda: torch.linalg.matrix_exp(aug)  # noqa: E731
-    lib_ms = cuda_ms(library, 3)
-    m, _ = kexpm.substep_counts(coeffs, norms, t)
-    ops = ea.expm_action_ops(basis, coeffs, norms, t, Q=Q)
-    nbytes = ea.expm_action_bytes(B, basis, itemsize=p0.element_size(), per_lane_t=per_lane_t,
-                                  Q=Q, per_lane_catmask=cm is not None and cm.dim() == 2)
-    t_ops = ops / PEAK_OPS["float64"]
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    rec = {"name": name, "route": "cuda", "source": EA_SOURCE, "replaces": EA_REPLACES,
-           "on_main_path": False, "max_abs_err": max(errs), "ms": k_ms, "plain_ms": p_ms,
-           "bound_ms": max(t_ops, t_bytes) * 1e3,
-           "bound_by": "operations" if t_ops >= t_bytes else "bytes", "library_ms": lib_ms}
-    rec["share_of_bound"] = rec["bound_ms"] / k_ms
-    timed_record(rec, run, 20, library, 3)
-    log(f"{name} at B = {B}, n = {n}, C = {C}, {str(p0.dtype)[6:]}, sub-steps per lane "
-        f"{int(m.min())}-{int(m.max())} (sum {int(m.sum())}), t == 0 on "
-        f"{int((t == 0).sum()) if per_lane_t else int(bool((t == 0).all())) * B} lanes: "
-        f"{k_ms:.4f} ms (device {rec['device_ms']:.4f} ms by {rec['device_ms_by']}, host "
-        f"{rec['host_us']:.1f} us), the plain version {p_ms:.4f} ms, library {lib_ms:.4f} ms "
-        f"(device {rec['library_device_ms']:.4f} ms by {rec['library_device_ms_by']}, host "
-        f"{rec['library_host_us']:.1f} us), "
-        f"bound {rec['bound_ms']:.5f} ms ({rec['bound_by']}; {ops:.3e} ops, {nbytes} bytes), "
-        f"{rec['share_of_bound']:.1%} of bound ({rec['bound_ms'] / rec['device_ms']:.1%} of "
-        f"device_ms), max|d| {max(errs):.3e}, bitwise equal to the plain version {bitwise}, "
-        f"off the main path; widths "
-        f"{[w for w in SUB_WIDTHS if w < B]} bitwise as in the batch")
-    return rec
+def off_main_path(name, rm):
+    """``row_matmul``, the per-interval spectrum's, not launched on the main
+    path (its counter reset before), whose spectrum is one launch of the
+    spectrum kernel."""
+    moved = rm.row_matmul.launches
+    require(moved == 0, f"{name}: row_matmul launched {moved} times on the main path")
 
 
 def row_matmul_record(rm, torch, name, args):
     """``row_matmul`` (float64) on one instance of a path (off the main
-    path, as `expm_action_record`'s): held against its
+    path: the per-interval spectrum replayed on the path's inputs): held
+    against its
     plain version (rtol 1e-6 / atol 1e-9), each prefix of SUB_WIDTHS lanes
     bitwise equal to its rows of the whole batch, timed beside the plain
     version and one library call (``torch.matmul`` without weights,
@@ -726,7 +613,7 @@ def row_matmul_record(rm, torch, name, args):
     lib_ms = cuda_ms(library, 50)
     nbytes = (B * n + n * C * m + (0 if cs is None else B * C) + B * m) * v.element_size()
     ops = 2 * B * m * C * n + (0 if cs is None else 2 * B * m * C)
-    t_ops = ops / PEAK_OPS["float64"]
+    t_ops = ops / PEAK_FP64
     t_bytes = nbytes / HBM_BYTES_PER_S
     rec = {"name": name, "route": "cuda", "source": RM_SOURCE, "replaces": RM_REPLACES,
            "on_main_path": False, "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
@@ -863,7 +750,7 @@ def post_fit_record(pf, torch, name, captured, launches, calls):
     p_ms = cuda_ms(lambda: lk.post_split_fit_plain(*a, **kw), 1)
     ops = pf.post_fit_ops(*a, **kw)
     nbytes = pf.post_fit_bytes(B, L, n, itemsize=nc.element_size())
-    t_ops, t_bytes = ops / PEAK_OPS["float64"], nbytes / HBM_BYTES_PER_S
+    t_ops, t_bytes = ops / PEAK_FP64, nbytes / HBM_BYTES_PER_S
     rec = {"name": name, "route": "cuda", "source": PF_SOURCE, "replaces": PF_REPLACES,
            "launches": launches, "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
            "bound_ms": max(t_ops, t_bytes) * 1e3,
@@ -895,20 +782,18 @@ def post_fit_record(pf, torch, name, captured, launches, calls):
     return rec
 
 
-def phase_attrs(cf, rm, ea, torch):
+def phase_attrs(cf, rm):
     """Registers, spill bytes and resident blocks per SM of every template
     instance of the correction sweep at s = 28 (misti_correction_sweep_attrs),
-    of expm_action, of row_matmul (float64 only) and of the post-split fit's
-    two kernels, one line each; no float32 instance of the sweep and no
-    instance of expm_action may spill."""
+    of the spectrum, of nm_step, of row_matmul and of the post-split fit's two
+    kernels, one line each; neither post_fit kernel may spill.  The
+    correction sweep's instances are not gated: they used local memory when
+    first measured."""
     from misti_tpu_torch.kernels import post_fit as pf
 
     for a in pf.kernel_attrs():
         log("attrs " + json.dumps({"library": "post_fit_float64", **a}))
         require(a["local_bytes"] == 0, f"post_fit {a}: uses local memory")
-    for a in ea.kernel_attrs():
-        log("attrs " + json.dumps({"library": "expm_action_float64", **a}))
-        require(a["local_bytes"] == 0, f"expm_action {a}: uses local memory")
     from misti_tpu_torch.kernels import nm_step as knm
     from misti_tpu_torch.kernels import spectrum as ksp
 
@@ -918,20 +803,17 @@ def phase_attrs(cf, rm, ea, torch):
                                    "registers": regs, "local_bytes": local}))
     log("attrs " + json.dumps({"library": "row_matmul_float64", "n": 44, "m": 44,
                                **rm.kernel_attrs()}))
-    for dtype in (torch.float32, torch.float64):
-        for cpfit in (True, False):
-            lib = f"correction_sweep_{str(dtype)[6:]}_{'cpfit' if cpfit else 'ect'}"
-            for a in cf.kernel_attrs(dtype, cpfit, KERNEL_S):
-                log("attrs " + json.dumps({"library": lib, "s": KERNEL_S, **a}))
-                require(dtype == torch.float64 or a["local_bytes"] == 0,
-                        f"{lib} {a}: a float32 instance uses local memory")
+    for cpfit in (True, False):
+        lib = f"correction_sweep_float64_{'cpfit' if cpfit else 'ect'}"
+        for a in cf.kernel_attrs(cpfit, KERNEL_S):
+            log("attrs " + json.dumps({"library": lib, "s": KERNEL_S, **a}))
 
 
-def phase_kernels(cf, rm, ea, torch, dev):
+def phase_kernels(cf, rm, torch, dev):
     """Every variant of the sweep kernel against its plain version; then
-    ``row_matmul`` at each of the spectrum's instances and ``expm_action`` at
-    both of its bases against their plain versions, with every prefix of
-    SUB_WIDTHS lanes bitwise as in the batch."""
+    ``row_matmul`` at each of the spectrum's instances against its plain
+    version, with every prefix of SUB_WIDTHS lanes bitwise as in the batch;
+    then ``post_fit``.  Each refuses float32 operands."""
     rng = np.random.default_rng(SEED)
     variants = []
     for cpfit in (True, False):
@@ -946,31 +828,36 @@ def phase_kernels(cf, rm, ea, torch, dev):
                                  mig=True, per_lane=True, s=PER_LANE_S, B=b))
     before = cf.correction_sweep.launches
     n = 0
+    rtol, atol = 1e-6, 1e-9
     for v in variants:
-        seed_state = rng.bit_generator.state
         s, B = v.get("s", KERNEL_S), v.get("B", KERNEL_B)
-        for dtype, rtol, atol in ((torch.float64, 1e-6, 1e-9), (torch.float32, 1e-4, 1e-6)):
-            rng.bit_generator.state = seed_state  # same draws for both dtypes
-            inp = kernel_inputs(rng, s, B, mig=v["mig"], pulse=v["has_pulse"],
-                                per_lane=v["per_lane"], dtype=dtype, device=dev)
-            opts = dict(cpfit=v["cpfit"], static_no_mig=v["static_no_mig"],
-                        has_pulse=v["has_pulse"])
-            got = cf.correction_sweep(inp, **opts)
-            torch.cuda.synchronize()
-            n += 1
-            want = cf.correction_sweep_plain(inp, **opts)
-            tag = (f"{'cpfit' if v['cpfit'] else 'ect'} snm={int(v['static_no_mig'])} "
-                   f"pulse={int(v['has_pulse'])} per_lane={int(v['per_lane'])} "
-                   f"s={s} B={B} {str(dtype)[6:]}")
-            e_lc = check_close(tag + " lc", got[:2], want[:2], rtol, atol)
-            e_pa = check_close(tag + " p_after", got[2:], want[2:], rtol, atol)
-            finite = float(torch.isfinite(got[:2]).float().mean())
-            log(f"kernel-vs-plain {tag}: max|dlc|={e_lc:.3e} max|dp|={e_pa:.3e} "
-                f"lanes with lc off by > 1e-6 rel {lanes_off(got, want)}/{B} "
-                f"finite lc {finite:.3f} (rtol {rtol:g} atol {atol:g})")
+        inp = kernel_inputs(rng, s, B, mig=v["mig"], pulse=v["has_pulse"],
+                            per_lane=v["per_lane"], device=dev)
+        opts = dict(cpfit=v["cpfit"], static_no_mig=v["static_no_mig"],
+                    has_pulse=v["has_pulse"])
+        got = cf.correction_sweep(inp, **opts)
+        torch.cuda.synchronize()
+        n += 1
+        want = cf.correction_sweep_plain(inp, **opts)
+        tag = (f"{'cpfit' if v['cpfit'] else 'ect'} snm={int(v['static_no_mig'])} "
+               f"pulse={int(v['has_pulse'])} per_lane={int(v['per_lane'])} "
+               f"s={s} B={B} float64")
+        e_lc = check_close(tag + " lc", got[:2], want[:2], rtol, atol)
+        e_pa = check_close(tag + " p_after", got[2:], want[2:], rtol, atol)
+        finite = float(torch.isfinite(got[:2]).float().mean())
+        log(f"kernel-vs-plain {tag}: max|dlc|={e_lc:.3e} max|dp|={e_pa:.3e} "
+            f"lanes with lc off by > 1e-6 rel {lanes_off(got, want)}/{B} "
+            f"finite lc {finite:.3f} (rtol {rtol:g} atol {atol:g})")
     moved = cf.correction_sweep.launches - before
     require(moved == n, f"launch counter moved {moved}, expected {n}")
-    log(f"kernel-vs-plain: {n} comparisons passed, launch counter +{moved}")
+    try:
+        cf.correction_sweep(inp.float(), cpfit=True)
+        refused = False
+    except TypeError:
+        refused = True
+    require(refused, "correction_sweep took float32 operands: it is built in float64 only")
+    require(cf.correction_sweep.launches == before + n, "a refused correction_sweep call counted")
+    log(f"kernel-vs-plain: {n} comparisons passed, launch counter +{moved}; float32 refused")
 
     from misti_tpu_torch.engine.likelihood import SpectrumBasis
 
@@ -1013,60 +900,6 @@ def phase_kernels(cf, rm, ea, torch, dev):
     require(rm.row_matmul.launches == before + n, "a refused row_matmul call counted")
     log(f"row_matmul kernel-vs-plain: {n} launches, launch counter +{moved}; float32 refused")
 
-    from misti_tpu_torch.kernels import expm as kexpm
-
-    before, n = ea.expm_action.launches, 0
-    for dtype, rtol, atol in ((torch.float64, 1e-6, 1e-9),):  # built in float64 only
-        basis = SpectrumBasis(dev, dtype)
-        for B in PER_LANE_B:
-            for kname, K, norms, J in (("k2", basis.sp2, basis.norms2, basis.jsfs2),
-                                       ("k1", basis.sp1, basis.norms1, basis.jsfs1)):
-                # rates over three decades (ragged sub-step counts), every 5th
-                # lane t == 0, a lane past the sub-step cap, a lane with a NaN
-                # rate, a lane with t == 0 and a NaN in p0 (it runs the series)
-                gen = np.random.default_rng(SEED + B)
-                C = norms.shape[0]
-                coeffs = gen.uniform(0.0, 1.0, (B, C)) * 10.0 ** gen.uniform(-1, 2, (B, 1))
-                t = gen.uniform(0.01, 0.5, B)
-                t[::5] = 0.0
-                coeffs[3], coeffs[min(7, B - 1), 0] = 1e6, np.nan
-                p0 = gen.uniform(0.0, 1.0, (B, K.n))
-                p0 /= p0.sum(-1, keepdims=True)
-                p0[min(5, B - 1), 1] = np.nan
-                cm = (gen.uniform(0.0, 1.0, (B, 7)) > 0.3).astype(float)
-                coeffs, t, p0, cm = (torch.tensor(x, dtype=dtype, device=dev)
-                                     for x in (coeffs, t, p0, cm))
-                got = ea.expm_action(K, coeffs, norms, t, p0, jsfs=J, catmask=cm)
-                n += 1
-                want = kexpm.expm_action_pair_plain(K, coeffs, norms, t, p0, jsfs=J, catmask=cm)
-                tag = f"expm_action {kname} B={B} {str(dtype)[6:]}"
-                errs = [check_close(f"{tag} {o}", g, w, rtol, atol)
-                        for o, g, w in zip(("E p0", "N1 p0", "projection"), got, want)]
-                bitwise = all(same_bits(g, w) for g, w in zip(got, want))
-                for w in SUB_WIDTHS:
-                    if w < B:
-                        part = ea.expm_action(K, coeffs[:w], norms, t[:w], p0[:w], jsfs=J,
-                                              catmask=cm[:w])
-                        n += 1
-                        require(all(same_bits(x, y[:w]) for x, y in zip(part, got)),
-                                f"{tag}: the first {w} lanes differ from the batch's")
-                log(f"kernel-vs-plain {tag}: max|d| {max(errs):.3e} (rtol {rtol:g} atol "
-                    f"{atol:g}), NaN lanes {int(got[0].isnan().any(-1).sum())}, bitwise equal "
-                    f"to the plain version {bitwise}; prefixes of "
-                    f"{[w for w in SUB_WIDTHS if w < B]} lanes bitwise as in the batch")
-    moved = ea.expm_action.launches - before
-    require(moved == n, f"expm_action launch counter moved {moved}, expected {n}")
-    basis = SpectrumBasis(dev, torch.float32)
-    x = torch.ones((6, 44), dtype=torch.float32, device=dev) / 44
-    try:
-        ea.expm_action(basis.sp2, x[:, :4], basis.norms2, 0.1, x)
-        refused = False
-    except TypeError:
-        refused = True
-    require(refused, "expm_action took float32 operands: it is built in float64 only")
-    require(ea.expm_action.launches == before + n, "a refused expm_action call counted")
-    log(f"expm_action kernel-vs-plain: {n} launches, launch counter +{moved}; float32 refused")
-
     from misti_tpu_torch.engine import likelihood as lk
     from misti_tpu_torch.kernels import post_fit as pf
 
@@ -1097,7 +930,7 @@ def phase_kernels(cf, rm, ea, torch, dev):
     log(f"post_fit kernel-vs-plain: {n} launches, launch counter +{moved}; float32 refused")
 
 
-def phase_main_path(cf, rm, ea, torch, dev, bench):
+def phase_main_path(cf, rm, torch, dev, bench):
     """The bench workload through llh_batch; returns per-kernel records."""
     from misti_tpu_torch import build_likelihood
     from misti_tpu_torch.config import LLH_DTYPE
@@ -1117,7 +950,6 @@ def phase_main_path(cf, rm, ea, torch, dev, bench):
         reps = 3
         cf.correction_sweep.launches = 0
         rm.row_matmul.launches = 0
-        ea.expm_action.launches = 0
         ksp.spectrum_kernel.launches = 0
         pf.post_fit.launches = 0
         t0 = time.perf_counter()
@@ -1126,7 +958,7 @@ def phase_main_path(cf, rm, ea, torch, dev, bench):
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         launches = cf.correction_sweep.launches
-        off_main_path(name, rm, ea)
+        off_main_path(name, rm)
         sp_launches = ksp.spectrum_kernel.launches
         pf_launches = pf.post_fit.launches
         require(sp_launches == reps, f"{name}: the spectrum kernel launched {sp_launches} times "
@@ -1169,13 +1001,12 @@ def phase_main_path(cf, rm, ea, torch, dev, bench):
             opts = lik.sweep_opts
             k_ms = cuda_ms(lambda: cf.correction_sweep(inp, **opts), 5)
             p_ms = cuda_ms(lambda: cf.correction_sweep_plain(inp, **opts), 1)
-            rtol, atol, peak = tolerance(inp.dtype)  # float64: the likelihood's dtype
             err = check_close(name + " sweep", cf.correction_sweep(inp, **opts),
-                              cf.correction_sweep_plain(inp, **opts), rtol, atol)
+                              cf.correction_sweep_plain(inp, **opts), 1e-6, 1e-9)
             work = cf.sweep_work(inp, **opts)
             ops = cf.sweep_ops(work, s, batch, **opts)
             nbytes = 15 * s * batch * inp.element_size()
-            t_ops, t_bytes = ops / peak, nbytes / HBM_BYTES_PER_S
+            t_ops, t_bytes = ops / PEAK_FP64, nbytes / HBM_BYTES_PER_S
             records[name] = {
                 "name": "correction_sweep_" + ("cpfit" if spec.cpfit else "ect"),
                 "route": "cuda", "source": SOURCE, "replaces": REPLACES,
@@ -1194,11 +1025,9 @@ def phase_main_path(cf, rm, ea, torch, dev, bench):
     lik, params, sp_launches = rm_case
     call = lambda: lik.llh_batch(params)  # noqa: E731
     args = capture_row_matmul(call)
-    ea_args = capture_expm_action(call, 44, 14)
     return [records[k] for k in sorted(records)] + [
         spectrum_record(torch, "spectrum_bench", capture_spectrum(call), sp_launches),
         row_matmul_record(rm, torch, "row_matmul_collapse_bench", args),
-        expm_action_record(ea, torch, "expm_action_k2_bench", ea_args),
         *pf_records]
 
 
@@ -1251,14 +1080,13 @@ def _sweep_kernel_record(cf, torch, fs, points, st_idx, launches, name):
     s, B = inp.shape[1], inp.shape[2]
     got = cf.correction_sweep(inp, **opts)
     want = cf.correction_sweep_plain(inp, **opts)
-    rtol, atol, peak = tolerance(inp.dtype)
-    err = check_close(name, got, want, rtol, atol)
+    err = check_close(name, got, want, 1e-6, 1e-9)
     k_ms = cuda_ms(lambda: cf.correction_sweep(inp, **opts), 10)
     p_ms = cuda_ms(lambda: cf.correction_sweep_plain(inp, **opts), 1)
     work = cf.sweep_work(inp, **opts)
     ops = cf.sweep_ops(work, s, B, **opts)
     nbytes = 15 * s * B * inp.element_size()
-    t_ops, t_bytes = ops / peak, nbytes / HBM_BYTES_PER_S
+    t_ops, t_bytes = ops / PEAK_FP64, nbytes / HBM_BYTES_PER_S
     rec = {"name": name, "route": "cuda", "source": SOURCE,
            "replaces": REPLACES, "launches": launches, "max_abs_err": err, "ms": k_ms,
            "plain_ms": p_ms, "bound_ms": max(t_ops, t_bytes) * 1e3,
@@ -1509,12 +1337,12 @@ def _print_old_table(torch, dev, bootstrap, inp, data, name, flags, maxiter, old
         f"{gain.max():.3e}")
 
 
-def phase_sweep(cf, rm, ea, torch, dev):
+def phase_sweep(cf, rm, torch, dev):
     """The north-star bootstrap x split-time sweep on the card (the run's
     default dtype, float64), cpfit (--maxiter 256) and ECT, each against the
     JAX package's float64 CPU table of the same command, with no cell left
     unconverged; the
-    per-lane kernel, row_matmul and expm_action (both bases) at the first
+    per-lane kernel, the spectrum, post_fit and row_matmul at the first
     stage's width; each lane of the first iteration bitwise the same alone,
     in sub-batches and in the whole batch; a small staged-vs-uninterrupted
     ECT sweep, bitwise.  Returns the kernel records."""
@@ -1546,7 +1374,6 @@ def phase_sweep(cf, rm, ea, torch, dev):
         knm.nm_step.launches = 0
         cf.correction_sweep.launches = 0
         rm.row_matmul.launches = 0
-        ea.expm_action.launches = 0
         ksp.spectrum_kernel.launches = 0
         pf.post_fit.launches = 0
         t = time.perf_counter()
@@ -1556,7 +1383,7 @@ def phase_sweep(cf, rm, ea, torch, dev):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
         launches = cf.correction_sweep.launches
-        off_main_path(f"sweep {mode}", rm, ea)
+        off_main_path(f"sweep {mode}", rm)
         sp_launches = ksp.spectrum_kernel.launches
         pf_launches = pf.post_fit.launches
         require(pf_launches == res.calls,
@@ -1597,7 +1424,7 @@ def phase_sweep(cf, rm, ea, torch, dev):
             f"{launches} kernel launches, {g}, cells with different nfev "
             f"{int((res.nfev != ref['nfev']).sum())}; per objective call: spectrum "
             f"{sp_launches / res.calls:.2f}, post_fit {pf_launches / res.calls:.2f} launches "
-            f"(row_matmul and expm_action 0)")
+            f"(row_matmul 0)")
 
         # one Nelder-Mead iteration at the first stage's width and at the
         # narrowest stage width of this run; the per-lane kernel at the first
@@ -1645,12 +1472,6 @@ def phase_sweep(cf, rm, ea, torch, dev):
         if mode == "cpfit":
             records.append(row_matmul_record(rm, torch, "row_matmul_collapse_sweep",
                                              capture_row_matmul(call)))
-            # pre-split interval 24: lanes of splits 20-24 hold T == 0 there;
-            # post-split interval 30: lanes of splits 24-27 do
-            records.append(expm_action_record(ea, torch, "expm_action_k2_sweep",
-                                              capture_expm_action(call, 44, 24)))
-            records.append(expm_action_record(ea, torch, "expm_action_k1_sweep",
-                                              capture_expm_action(call, 8, 30)))
         if mode == "cpfit":
             cpfit_run = dict(res=res, wall=wall, fs=fs, points=points, st_all=st_all)
 
@@ -1751,7 +1572,7 @@ def _objective_launches(torch, lik, points) -> int:
     return sum(e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
 
 
-def phase_single_fit(cf, rm, ea, torch, dev):
+def phase_single_fit(cf, rm, torch, dev):
     """The single-fit path on the card, float64, through the port's CLIs:
     upstream's fits (tests/test_cli.py's commands) against its .mi files and
     --debug golden; the north-star command at split 24 (cpfit, ECT, cpfit
@@ -1835,7 +1656,6 @@ def phase_single_fit(cf, rm, ea, torch, dev):
             out_mi = os.path.join(tmp, name + ".mi")
             cf.correction_sweep.launches = 0
             rm.row_matmul.launches = 0
-            ea.expm_action.launches = 0
             ksp.spectrum_kernel.launches = 0
             pf.post_fit.launches = 0
             knm.nm_step.launches = 0
@@ -1843,7 +1663,7 @@ def phase_single_fit(cf, rm, ea, torch, dev):
             rc, lines, wall = _run_cli(misti.main, argv + ["-o", out_mi])
             nm_launches = knm.nm_step.launches
             launches = cf.correction_sweep.launches
-            off_main_path(f"north-star {name}", rm, ea)
+            off_main_path(f"north-star {name}", rm)
             sp_launches = ksp.spectrum_kernel.launches
             pf_launches = pf.post_fit.launches
             require(rc == 0, f"north-star {name}: rc {rc}")
@@ -1892,7 +1712,7 @@ def phase_single_fit(cf, rm, ea, torch, dev):
             work = cf.sweep_work(inp, **opts)
             ops = cf.sweep_ops(work, s, B, **opts)
             nbytes = 15 * s * B * inp.element_size()
-            t_ops, t_bytes = ops / PEAK_OPS["float64"], nbytes / HBM_BYTES_PER_S
+            t_ops, t_bytes = ops / PEAK_FP64, nbytes / HBM_BYTES_PER_S
             rec = {"name": f"correction_sweep_{name}_single_fit_f64", "route": "cuda",
                    "source": SOURCE, "replaces": REPLACES, "launches": launches,
                    "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
@@ -1909,8 +1729,6 @@ def phase_single_fit(cf, rm, ea, torch, dev):
             if name == "cpfit":
                 records.append(row_matmul_record(rm, torch, "row_matmul_collapse_single_fit_f64",
                                                  capture_row_matmul(call)))
-                records.append(expm_action_record(ea, torch, "expm_action_k2_single_fit_f64",
-                                                  capture_expm_action(call, 44, 12)))
             log(f"north-star {name} (float64, card): x {fit['x']} llh {fit['llh']!r}; JAX "
                 f"package x {ref['x']} llh {ref['llh']!r}; rel dllh {d_llh:.3e}, max |dx| "
                 f"{d_x:.3e}; (card, JAX) {json.dumps(counters)}; converged {fit['converged']}; "
@@ -1919,7 +1737,7 @@ def phase_single_fit(cf, rm, ea, torch, dev):
                 f"{wall / calls * 1e3:.1f} ms per objective call, {fit['calls'] / wall:.1f} "
                 f"evals/s, {per_call} kernel launches per objective call ({n + 5} lanes), of "
                 f"them spectrum {sp_launches / calls:.2f} and post_fit {pf_launches / calls:.2f} "
-                f"(row_matmul and expm_action 0); "
+                f"(row_matmul 0); "
                 f"correction kernel at s = {s}, B = {B}, float64, shared tables: {k_ms:.4f} ms "
                 f"(device {rec['device_ms']:.4f} ms, host {rec['host_us']:.1f} us), "
                 f"plain {p_ms:.1f} ms, bound {rec['bound_ms']:.5f} ms ({rec['bound_by']}; "
@@ -1962,7 +1780,7 @@ def _run_ranks(cmd, timeout):
     return proc.returncode, out, err, time.perf_counter() - t
 
 
-def phase_sharded_sweep(cf, rm, ea, torch, dev, cpfit_run):
+def phase_sharded_sweep(cf, torch, dev, cpfit_run):
     """Phase 6's north-star cpfit sweep (--maxiter 256, the CLI's default
     dtype, bootstrap seed 0) through ``misti_tpu_torch.cli.sweep`` as
     SHARDED_RANKS ranks of ``torch.distributed.run`` on the one card, held to
@@ -2048,7 +1866,7 @@ def phase_sharded_sweep(cf, rm, ea, torch, dev, cpfit_run):
     return rec
 
 
-def phase_scenarios(cf, rm, ea, torch, dev):
+def phase_scenarios(cf, rm, torch, dev):
     """The --scenarios path: two scenarios of the 16-scenario matrix
     (tests/fixtures/matrix/matrix.json; MATRIX_SCENARIOS) resident in one
     process through ``sweep_many``, at full width (808 cells each, bootstrap
@@ -2090,7 +1908,6 @@ def phase_scenarios(cf, rm, ea, torch, dev):
                               smooth=False, correct=True))
     cf.correction_sweep.launches = 0
     rm.row_matmul.launches = 0
-    ea.expm_action.launches = 0
     ksp.spectrum_kernel.launches = 0
     pf.post_fit.launches = 0
     knm.nm_step.launches = 0
@@ -2101,7 +1918,7 @@ def phase_scenarios(cf, rm, ea, torch, dev):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
     launches = cf.correction_sweep.launches
-    off_main_path("scenarios", rm, ea)
+    off_main_path("scenarios", rm)
     sp_launches = ksp.spectrum_kernel.launches
     pf_launches = pf.post_fit.launches
     calls = sum(r.calls for r in results.values())
@@ -2142,7 +1959,7 @@ def phase_scenarios(cf, rm, ea, torch, dev):
         f"{calls} objective calls = {launches} kernel launches, {knm.nm_step.launches} nm_step "
         f"launches; per objective call: spectrum "
         f"{sp_launches / calls:.2f}, post_fit {pf_launches / calls:.2f} launches (row_matmul "
-        f"and expm_action 0)")
+        f"0)")
 
     # the per-lane kernel at the two-band scenario's first-stage width
     name = MATRIX_SCENARIOS[0]
@@ -2165,8 +1982,6 @@ def phase_scenarios(cf, rm, ea, torch, dev):
             spectrum_record(torch, "spectrum_two_band", capture_spectrum(call), sp_launches),
             row_matmul_record(rm, torch, "row_matmul_collapse_two_band",
                               capture_row_matmul(call)),
-            expm_action_record(ea, torch, "expm_action_k2_two_band",
-                               capture_expm_action(call, 44, 24)),
             post_fit_record(pf, torch, "post_fit_cpfit_two_band", capture_post_fit(call),
                             pf_launches, calls)]
 
@@ -2180,8 +1995,6 @@ def main() -> int:
     sys.path.insert(0, HERE)
     from misti_tpu_torch import bench
     from misti_tpu_torch.kernels import correction_fused as cf
-    from misti_tpu_torch.kernels import expm_action as ea
-    from misti_tpu_torch.kernels import post_fit as pf
     from misti_tpu_torch.kernels import row_matmul as rm
 
     dev = torch.device("cuda", 0)
@@ -2204,17 +2017,16 @@ def main() -> int:
         log(f"phase {name}: {time.perf_counter() - t:.1f} s wall")
         return out
 
-    phase("1 attrs", phase_attrs, cf, rm, ea, torch)
-    phase("2 kernels", phase_kernels, cf, rm, ea, torch, dev)
-    kernels = phase("3 main path", phase_main_path, cf, rm, ea, torch, dev, bench)
+    phase("1 attrs", phase_attrs, cf, rm)
+    phase("2 kernels", phase_kernels, cf, rm, torch, dev)
+    kernels = phase("3 main path", phase_main_path, cf, rm, torch, dev, bench)
     phase("4 real inputs", phase_real_inputs, torch, dev)
     phase("5 log", phase_log, torch, dev)
-    sweep_records, cpfit_run = phase("6 sweep path", phase_sweep, cf, rm, ea, torch, dev)
+    sweep_records, cpfit_run = phase("6 sweep path", phase_sweep, cf, rm, torch, dev)
     kernels += sweep_records
-    kernels += phase("7 single fit", phase_single_fit, cf, rm, ea, torch, dev)
-    kernels.append(phase("8 sharded sweep", phase_sharded_sweep, cf, rm, ea, torch, dev,
-                         cpfit_run))
-    kernels += phase("9 scenarios", phase_scenarios, cf, rm, ea, torch, dev)
+    kernels += phase("7 single fit", phase_single_fit, cf, rm, torch, dev)
+    kernels.append(phase("8 sharded sweep", phase_sharded_sweep, cf, torch, dev, cpfit_run))
+    kernels += phase("9 scenarios", phase_scenarios, cf, rm, torch, dev)
     log(f"chip_smoke: {time.perf_counter() - t0:.1f} s wall in all")
 
     log("kernels " + json.dumps({"kernels": kernels}))

@@ -32,8 +32,7 @@ import torch
 from ..config import LLH_DTYPE, resolve_device, resolve_dtype
 from ..kernels.correction import fit_single_pop
 from ..kernels.correction_fused import correction_sweep, fused_correction
-from ..kernels.expm import expm_action_pair, sparse_basis
-from ..kernels.expm_action import expm_action
+from ..kernels.expm import expm_action_pair_plain, sparse_basis
 from ..kernels.post_fit import post_fit
 from ..kernels.row_matmul import row_matmul
 from ..kernels.spectrum import pack_spectrum, pulse_nonzeros, spectrum_kernel
@@ -45,9 +44,9 @@ _POST_OUTERS = 6  # Jacobi rounds of the ECT post-split fit
 
 
 def hand_launches() -> int:
-    """The launches of the five hand kernels so far, in this process."""
-    return correction_sweep.launches + expm_action.launches + post_fit.launches \
-        + row_matmul.launches + spectrum_kernel.launches
+    """The launches of the likelihood's hand kernels so far, in this process."""
+    return correction_sweep.launches + post_fit.launches + row_matmul.launches \
+        + spectrum_kernel.launches
 
 
 def _pulse_update_3state(p, rate, pop: int):
@@ -223,14 +222,13 @@ def jafs_spectrum_plain(basis: SpectrumBasis, lc, mi, pu, T_pre, T_post, catmask
     Only the action of E and N1 on the carried state is needed, so each
     interval is Taylor sub-stepping with each lane's generator over the
     bases' nonzeros, with N1 p0's projection onto the categories folded in
-    (kernels/expm.py `expm_action_pair`: one kernel launch per interval on
-    the card).  Every
-    other product with a constant matrix is a `row_matmul`, the per-lane
-    pulse operators are applied as a product and a last-axis sum, and the
-    interval terms are added in order, so a lane's spectrum does not depend
-    on the batch it is evaluated in.  ``parts``, a dict, gets the sums of
-    the pre- and post-split terms ("pre", "post": None where there is no
-    such interval) and the 8-state p0 before the last interval ("p8").
+    (kernels/expm.py `expm_action_pair_plain`).  Every other product with
+    a constant matrix is a `row_matmul`, the per-lane pulse operators are
+    applied as a product and a last-axis sum, and the interval terms are
+    added in order, so a lane's spectrum does not depend on the batch it is
+    evaluated in.  ``parts``, a dict, gets the sums of the pre- and
+    post-split terms ("pre", "post": None where there is no such interval)
+    and the 8-state p0 before the last interval ("p8").
     """
     B = lc.shape[0]
     s, n_post = T_pre.shape[1], T_post.shape[1]
@@ -248,8 +246,8 @@ def jafs_spectrum_plain(basis: SpectrumBasis, lc, mi, pu, T_pre, T_post, catmask
                 # a product and a last-axis sum, as in smooth_rates
                 p0 = (ss.pulse_operator(pu[:, t, pop], pop, basis.b2) * p0[:, None, :]).sum(-1)
         cm = catmask[t] if catmask.dim() == 2 else catmask[:, t]
-        p0, _, jafs_t = expm_action_pair(basis.sp2, coeffs_pre[:, t], basis.norms2, T_pre[:, t],
-                                         p0, jsfs=basis.jsfs2, catmask=cm)
+        p0, _, jafs_t = expm_action_pair_plain(basis.sp2, coeffs_pre[:, t], basis.norms2,
+                                               T_pre[:, t], p0, jsfs=basis.jsfs2, catmask=cm)
         jafs_pre.append(jafs_t)
 
     # ancient rebase exactly at the split happens before the collapse
@@ -259,8 +257,8 @@ def jafs_spectrum_plain(basis: SpectrumBasis, lc, mi, pu, T_pre, T_post, catmask
 
     jafs_post = []
     for t in range(n_post):
-        p0, _, jafs_t = expm_action_pair(basis.sp1, coeffs_post[:, t], basis.norms1,
-                                         T_post[:, t], p0, jsfs=basis.jsfs1)
+        p0, _, jafs_t = expm_action_pair_plain(basis.sp1, coeffs_post[:, t], basis.norms1,
+                                               T_post[:, t], p0, jsfs=basis.jsfs1)
         jafs_post.append(jafs_t)
 
     # last interval, T = infinity: occupancy = -M^{-1} P0 (:530-540)

@@ -11,8 +11,8 @@ warm start.  Budgets 2 rounds / 8 first-round / 2 warm LM iterations and
 8 squarings, as the JAX package's `build_fused_correction` passes them.
 
 * `correction_sweep` is the wrapper: CPU tensors take the plain version,
-  CUDA tensors launch the hand-written kernel (csrc/correction_sweep.cu) or
-  raise.  ``correction_sweep.launches`` counts kernel launches.
+  CUDA tensors launch the hand-written kernel (csrc/correction_sweep.cu,
+  float64 only) or raise.  ``correction_sweep.launches`` counts kernel launches.
 * `correction_sweep_plain` is the same arithmetic in torch ops on
   (intervals, lanes) fields: 3x3 matrices are row-major 9-tuples, the
   interval prefix product is the same Hillis-Steele doubling, and the LM
@@ -646,7 +646,6 @@ _CSRC = Path(__file__).resolve().parent / "csrc" / "correction_sweep.cu"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"  # listed in .gitignore
 _LIBS: dict = {}
 _LIB_LOCK = threading.Lock()
-_DTYPES = {torch.float32: ("float", "f32"), torch.float64: ("double", "f64")}
 
 
 def _nvcc() -> str:
@@ -666,8 +665,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
 
 
-def _lib_path(dtype: torch.dtype, cpfit: bool) -> Path:
-    return BUILD_DIR / f"correction_sweep_{_DTYPES[dtype][1]}_{'cpfit' if cpfit else 'ect'}.so"
+def _lib_path(cpfit: bool) -> Path:
+    return BUILD_DIR / f"correction_sweep_f64_{'cpfit' if cpfit else 'ect'}.so"
 
 
 def _tmp_path(out: Path) -> Path:
@@ -678,15 +677,14 @@ def _tmp_path(out: Path) -> Path:
 
 
 def compile_libs(jobs, check: bool = True) -> dict:
-    """Run one nvcc per job (out path, source, dtype, cpfit, extra flags), all
-    started together.  Returns {library name: (seconds, nvcc/ptxas log, ok)};
-    with ``check`` a failed build raises."""
+    """Run one nvcc per job (out path, source, extra flags), all started
+    together.  Returns {library name: (seconds, nvcc/ptxas log, ok)}; with
+    ``check`` a failed build raises."""
     procs = []
-    for out, src, dtype, cpfit, flags in jobs:
+    for out, src, flags in jobs:
         out = Path(out)
         out.parent.mkdir(parents=True, exist_ok=True)
-        cmd = [_nvcc(), *NVCC_FLAGS, *flags, f"-DMISTI_T={_DTYPES[dtype][0]}",
-               f"-DMISTI_CPFIT={int(cpfit)}", "-o", str(_tmp_path(out)), str(src)]
+        cmd = [_nvcc(), *NVCC_FLAGS, *flags, "-o", str(_tmp_path(out)), str(src)]
         procs.append((out, time.perf_counter(), subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     report = {}
@@ -712,21 +710,20 @@ def stale(jobs) -> list:
     return [j for j in jobs if not fresh(Path(j[0]), Path(j[1]))]
 
 
-def build_jobs(variants=None, force: bool = False) -> list:
-    """The nvcc jobs of the sweep kernels, one shared library per (dtype,
-    residual mode), for `compile_libs`; without ``force`` only stale ones."""
-    variants = variants or [(d, c) for d in _DTYPES for c in (True, False)]
-    jobs = [(_lib_path(d, c), _CSRC, d, c, ()) for d, c in variants]
+def build_jobs(force: bool = False) -> list:
+    """The nvcc jobs of the sweep kernels, one float64 library per residual
+    mode, for `compile_libs`; without ``force`` only stale ones."""
+    jobs = [(_lib_path(c), _CSRC, (f"-DMISTI_CPFIT={int(c)}",)) for c in (True, False)]
     return jobs if force else stale(jobs)
 
 
 def port_jobs(force: bool = False) -> list:
     """The nvcc jobs of every hand kernel library of the port (the sweep
-    kernels' four and one each of the others); without ``force`` only the
+    kernels' two and one each of the others); without ``force`` only the
     stale ones."""
-    from . import expm_action, nm_step, post_fit, row_matmul, spectrum
+    from . import nm_step, post_fit, row_matmul, spectrum
 
-    return [j for m in (expm_action, nm_step, post_fit, row_matmul, spectrum)
+    return [j for m in (nm_step, post_fit, row_matmul, spectrum)
             for j in m.build_jobs(force)] + build_jobs(force=force)
 
 
@@ -742,10 +739,10 @@ def build_stale() -> dict:
         return compile_libs(port_jobs())
 
 
-def build(variants=None, force: bool = False) -> dict:
+def build(force: bool = False) -> dict:
     """Compile the sweep kernels, all started together.  Returns {library
     name: (seconds, ptxas report, ok)}; raises on a failed build."""
-    return compile_libs(build_jobs(variants, force))
+    return compile_libs(build_jobs(force))
 
 
 def bind(path) -> SimpleNamespace:
@@ -766,13 +763,12 @@ def bind(path) -> SimpleNamespace:
     return SimpleNamespace(sweep=fn, attrs=attrs)
 
 
-def _load(dtype: torch.dtype, cpfit: bool) -> SimpleNamespace:
-    key = (dtype, cpfit)
+def _load(cpfit: bool) -> SimpleNamespace:
     with _LIB_LOCK:
-        if key not in _LIBS:
+        if cpfit not in _LIBS:
             build_stale()
-            _LIBS[key] = bind(_lib_path(dtype, cpfit))
-        return _LIBS[key]
+            _LIBS[cpfit] = bind(_lib_path(cpfit))
+        return _LIBS[cpfit]
 
 
 def lib_attrs(lib: SimpleNamespace, s: int) -> list:
@@ -788,9 +784,9 @@ def lib_attrs(lib: SimpleNamespace, s: int) -> list:
                  blocks_per_sm=buf[5 * i + 4]) for i in range(4)]
 
 
-def kernel_attrs(dtype: torch.dtype, cpfit: bool, s: int) -> list:
-    """`lib_attrs` of the sweep library for (dtype, residual mode)."""
-    return lib_attrs(_load(dtype, cpfit), s)
+def kernel_attrs(cpfit: bool, s: int) -> list:
+    """`lib_attrs` of the sweep library of a residual mode."""
+    return lib_attrs(_load(cpfit), s)
 
 
 def correction_sweep(inp: torch.Tensor, *, cpfit: bool, mixture_th: float = 0.0,
@@ -799,8 +795,9 @@ def correction_sweep(inp: torch.Tensor, *, cpfit: bool, mixture_th: float = 0.0,
                      max_squarings: int = 8) -> torch.Tensor:
     """The fused sweep, inp (7, s, B) -> out (8, s, B).
 
-    A CPU tensor takes `correction_sweep_plain`; a CUDA tensor launches the
-    kernel (csrc/correction_sweep.cu) on the current stream, or raises.
+    A CPU tensor takes `correction_sweep_plain` (any float dtype); a CUDA
+    tensor launches the kernel (csrc/correction_sweep.cu, float64 only: the
+    likelihood's dtype) on the current stream, or raises.
     """
     opts = dict(cpfit=cpfit, mixture_th=mixture_th, static_no_mig=static_no_mig,
                 has_pulse=has_pulse, rounds=rounds, iters0=iters0,
@@ -809,8 +806,9 @@ def correction_sweep(inp: torch.Tensor, *, cpfit: bool, mixture_th: float = 0.0,
         return correction_sweep_plain(inp, **opts)
     if inp.device.type != "cuda":
         raise ValueError(f"unsupported device {inp.device}")
-    if inp.dtype not in _DTYPES:
-        raise TypeError(f"correction_sweep takes float32 or float64, not {inp.dtype}")
+    if inp.dtype is not torch.float64:
+        raise TypeError(f"correction_sweep takes float64 (the likelihood's dtype), not "
+                        f"{inp.dtype}")
     if inp.dim() != 3 or inp.shape[0] != 7:
         raise ValueError(f"expected input (7, s, B), got {tuple(inp.shape)}")
     if not inp.is_contiguous():
@@ -821,7 +819,7 @@ def correction_sweep(inp: torch.Tensor, *, cpfit: bool, mixture_th: float = 0.0,
     out = torch.empty((8, s, B), dtype=inp.dtype, device=inp.device)
     if B == 0:
         return out
-    fn = _load(inp.dtype, cpfit).sweep
+    fn = _load(cpfit).sweep
     with torch.cuda.device(inp.device):
         stream = torch.cuda.current_stream(inp.device).cuda_stream
         err = fn(inp.data_ptr(), out.data_ptr(), s, B, int(static_no_mig),

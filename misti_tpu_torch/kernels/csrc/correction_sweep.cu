@@ -11,9 +11,9 @@
 // the states after each interval.
 //
 // What bounds it on this card: arithmetic.  A lane moves 7 inputs and 8
-// outputs per interval (~60 bytes in float32) but spends thousands of
-// dependent 3x3 flops per LM iteration, so the card's FP32/FP64 non-tensor
-// rate and the latency of the dependent chains set the time, not HBM.
+// outputs per interval (120 bytes) but spends thousands of dependent 3x3
+// flops per LM iteration, so the card's FP64 non-tensor rate and the
+// latency of the dependent chains set the time, not HBM.
 // What the design does about it:
 //   * one thread per (interval, lane): the expm and LM work of a round is
 //     independent across intervals, so 28 intervals x 4096 lanes give
@@ -32,28 +32,25 @@
 //     b^3 (three powers live) with each block formed where the outer Horner
 //     step adds it, the Taylor tables are constants of type T, the ECT
 //     moments are formed one series at a time (E - I only where a doubling
-//     needs it), the residual's inputs and the interval's rates sit in
-//     shared memory, and float32 cpfit runs the residual once per Jacobian
-//     column, so that it fits 128 registers and two blocks per SM;
+//     needs it), and the residual's inputs and the interval's rates sit in
+//     shared memory;
 //   * a thread leaves its LM loop once converged; every update after
 //     convergence was masked in the TPU kernel, so the numbers are the same.
 // Built with FMA contraction (nvcc's default): the products contract to
 // fused multiply-adds, so the kernel matches its plain version to a
-// tolerance (rtol 1e-4 / atol 1e-6 in float32, 1e-6 / 1e-9 in float64,
-// chip_smoke.py), not bitwise; the operation order is the plain version's.
+// tolerance (rtol 1e-6 / atol 1e-9, chip_smoke.py), not bitwise; the
+// operation order is the plain version's.
 //
 // Layout: inp (7, s, B) = T, lh0, lh1, mi0, mi1, pu0, pu1; out (8, s, B) =
 // lc0, lc1, p_after (2 genomes x 3 states); the lane index is fastest.
-// Compile-time variants: residual mode (cpfit or expected coalescence time,
-// -DMISTI_CPFIT), dtype (-DMISTI_T), and inside each library the template
-// flags STATIC_NO_MIG and HAS_PULSE.
+// Float64 only: every path gives it the likelihood's float64 tables
+// (config.LLH_DTYPE).  Compile-time variants: residual mode (cpfit or
+// expected coalescence time, -DMISTI_CPFIT), and inside each library the
+// template flags STATIC_NO_MIG and HAS_PULSE.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
-#ifndef MISTI_T
-#define MISTI_T float
-#endif
 #ifndef MISTI_CPFIT
 #define MISTI_CPFIT 1
 #endif
@@ -63,30 +60,18 @@ namespace {
 constexpr int kMaxThreads = 256;
 constexpr int kDeg = 18;             // Taylor degree of every series
 constexpr int kPS = 3;               // Paterson-Stockmeyer base
-// float32 cpfit fits two blocks of 224 threads per SM (128 registers) when
-// the residual runs once per Jacobian column; the other libraries are
-// faster with both columns in one pass at one block per SM (measured on the
-// H100, PERF.md)
-constexpr bool kLean = MISTI_CPFIT && sizeof(MISTI_T) == 4;
-constexpr int kTangents = kLean ? 1 : 2;  // tangent components per residual pass
-constexpr int kMinBlocks = kLean ? 2 : 1;  // resident blocks per SM the registers are set for
+constexpr int kTangents = 2;  // tangent components per residual pass
+constexpr int kMinBlocks = 1;  // resident blocks per SM the registers are set for
 static_assert(kDeg % kPS == 0, "the Paterson-Stockmeyer base must divide the degree");
 
 // ---------------------------------------------------------------- scalars
 
-__device__ __forceinline__ float m_exp(float x) { return expf(x); }
 __device__ __forceinline__ double m_exp(double x) { return exp(x); }
-__device__ __forceinline__ float m_log(float x) { return logf(x); }
 __device__ __forceinline__ double m_log(double x) { return log(x); }
-__device__ __forceinline__ float m_log2(float x) { return log2f(x); }
 __device__ __forceinline__ double m_log2(double x) { return log2(x); }
-__device__ __forceinline__ float m_exp2(float x) { return exp2f(x); }
 __device__ __forceinline__ double m_exp2(double x) { return exp2(x); }
-__device__ __forceinline__ float m_sqrt(float x) { return sqrtf(x); }
 __device__ __forceinline__ double m_sqrt(double x) { return sqrt(x); }
-__device__ __forceinline__ float m_ceil(float x) { return ceilf(x); }
 __device__ __forceinline__ double m_ceil(double x) { return ceil(x); }
-__device__ __forceinline__ float m_abs(float x) { return fabsf(x); }
 __device__ __forceinline__ double m_abs(double x) { return fabs(x); }
 
 template <typename T>
@@ -306,16 +291,16 @@ enum { SER_E = 0, SER_1 = 1, SER_PHI = 2, SER_J = 3 };
 __host__ __device__ constexpr double factorial(int k) { return k < 2 ? 1.0 : factorial(k - 1) * k; }
 
 struct Taylor {
-  MISTI_T c[4][kDeg + 1];
+  double c[4][kDeg + 1];
 };
 
 __host__ __device__ constexpr Taylor taylor_tables() {
   Taylor t{};
   for (int k = 0; k <= kDeg; ++k) {
-    t.c[SER_E][k] = MISTI_T(1.0 / factorial(k));
-    t.c[SER_1][k] = MISTI_T(1.0 / factorial(k + 1));
-    t.c[SER_PHI][k] = MISTI_T(k == 0 ? 0.0 : 1.0 / factorial(k));
-    t.c[SER_J][k] = MISTI_T(k == 0 ? 0.0 : k / (2.0 * factorial(k + 2)));
+    t.c[SER_E][k] = 1.0 / factorial(k);
+    t.c[SER_1][k] = 1.0 / factorial(k + 1);
+    t.c[SER_PHI][k] = k == 0 ? 0.0 : 1.0 / factorial(k);
+    t.c[SER_J][k] = k == 0 ? 0.0 : k / (2.0 * factorial(k + 2));
   }
   return t;
 }
@@ -532,18 +517,10 @@ __device__ __forceinline__ void pulse_cols(T& q0, T& q1, T& q2, T rate, int pop)
 enum { F_Q00, F_Q01, F_Q02, F_Q10, F_Q11, F_Q12, F_T0, F_T1, F_MU0, F_MU1,
        F_TT, F_LH0, F_LH1, F_PU0, F_PU1, kCold };
 
-__device__ __forceinline__ float lds(unsigned a, float) {
-  float v;
-  asm volatile("ld.shared.f32 %0, [%1];" : "=f"(v) : "r"(a));
-  return v;
-}
 __device__ __forceinline__ double lds(unsigned a, double) {
   double v;
   asm volatile("ld.shared.f64 %0, [%1];" : "=d"(v) : "r"(a));
   return v;
-}
-__device__ __forceinline__ void sts(unsigned a, float v) {
-  asm volatile("st.shared.f32 [%0], %1;" ::"r"(a), "f"(v) : "memory");
 }
 __device__ __forceinline__ void sts(unsigned a, double v) {
   asm volatile("st.shared.f64 [%0], %1;" ::"r"(a), "d"(v) : "memory");
@@ -619,7 +596,7 @@ __device__ __forceinline__ void residual(const Ctx<T>& c, const S& a0, const S& 
 }
 
 // residual and 2x2 Jacobian by forward mode: column k of the Jacobian is
-// the tangent along x_k; with one tangent per pass the residual runs twice
+// the tangent along x_k, kTangents of them a pass
 template <int MODE, typename T>
 __device__ __forceinline__ void lin_at(const Ctx<T>& c, T x0, T x1, T& r0, T& r1, T& j00,
                                        T& j10, T& j01, T& j11) {
@@ -948,12 +925,12 @@ cudaError_t attrs(int s, int* o) {
 }  // namespace
 
 // C entry point: inp (7, s, B) and out (8, s, B) device pointers of
-// MISTI_T, launched on `stream`.  Returns the CUDA error code (0 = launched).
+// double, launched on `stream`.  Returns the CUDA error code (0 = launched).
 extern "C" int misti_correction_sweep(const void* inp, void* out, int s, int B,
                                       int static_no_mig, int has_pulse,
                                       double mixture_th, int rounds, int iters0,
                                       int iters_warm, int max_squarings, void* stream) {
-  using T = MISTI_T;
+  using T = double;
   constexpr bool CP = MISTI_CPFIT != 0;
   if (s < 1 || s > kMaxThreads || B < 1) return (int)cudaErrorInvalidValue;
   const T* in = static_cast<const T*>(inp);
@@ -977,7 +954,7 @@ extern "C" int misti_correction_sweep(const void* inp, void* out, int s, int B,
 // thread, local memory bytes per thread, resident blocks per SM at the
 // launch's block size and shared memory for s intervals.
 extern "C" int misti_correction_sweep_attrs(int s, int* out) {
-  using T = MISTI_T;
+  using T = double;
   constexpr bool CP = MISTI_CPFIT != 0;
   if (s < 1 || s > kMaxThreads) return (int)cudaErrorInvalidValue;
   cudaError_t err = attrs<T, CP, false, false>(s, out);

@@ -1,6 +1,5 @@
-// The spectrum's per-interval series, shared by the per-interval kernel
-// (expm_action.cu) and the one-launch spectrum (spectrum.cu), so that both
-// give every interval the same values, bit for bit.  Float64 only.
+// The spectrum's per-interval series, as the one-launch spectrum
+// (spectrum.cu) runs it for every interval.  Float64 only.
 //
 // For a lane with rates r[0..C-1] the generator is M = sum_c r_c B_c over
 // a constant stacked basis, and over an interval of length t the series
@@ -26,7 +25,8 @@
 // buffer flips `phase`, so a write never meets a read of the same half
 // that has not passed a __syncwarp.
 //
-// Each value is the one the plain version gives on the card: G is formed in
+// Each value is the one the plain version (kernels/expm.py
+// `expm_action_pair_plain`) gives on the card: G is formed in
 // the same order (a product, then for each further basis a product and an
 // add), each column's nonzeros are summed in order, and each add and
 // product is rounded on its own (__*_rn: never contracted into FMAs), as

@@ -5,19 +5,22 @@
 //   out[b, j] = sum_c cs[b, c] * (sum_k v[b, k] * K[k, c*m + j])
 //
 // v (B, n), K (n, C*m) and cs (B, C) row-major; cs may be null (C = 1,
-// weight 1).  On the spectrum's per-interval path (the plain version of the
-// one-launch spectrum, spectrum.cu) these are the spectrum's products
-// with a constant matrix: the collapse map (B, 44) @ (44, 8), the last
-// interval's (B, 8) @ (8, 7) and the ancient-sample map (B, 44) @ (44, 44);
-// the weighted form (the stacked basis, C = 4) serves the width probe.
+// weight 1).  Its one job: the products with a constant matrix of the
+// spectrum's per-interval path (engine/likelihood.py jafs_spectrum_plain),
+// which on the card is the reference the one-launch spectrum (spectrum.cu)
+// is held to: the collapse map (B, 44) @ (44, 8), the last interval's
+// (B, 8) @ (8, 7), the ancient-sample map (B, 44) @ (44, 44) and each
+// interval's JSFS projection (B, 44) @ (44, 7) and (B, 8) @ (8, 7).  No
+// path of the program launches it.  The weighted form (the stacked basis,
+// C = 4) serves the width probe.
 //
-// Why a kernel: a library GEMM picks its algorithm (tile shape, split of
-// the reduction) by the problem's size, so a lane's product, and with it
-// the lane's llh, would change with the number of lanes in the batch.  The
-// sweep's staged compaction resumes a few cells in a narrow batch and needs
-// each lane's value to be the one it had in the wide batch.  Here every
-// output has a fixed order: for each c a chain of fused multiply-adds over
-// k = 0..n-1, then the c terms in order c = 0..C-1.
+// Why a kernel: spectrum.cu computes these products as this kernel's
+// chains (expm_series.cuh fma_chain), so the reference keeps the kernel's
+// bits; a library GEMM picks its algorithm (tile shape, split of the
+// reduction) by the problem's size, so its product is neither that chain
+// nor the same for a lane in every batch width.  Here every output has a
+// fixed order: for each c a chain of fused multiply-adds over k = 0..n-1,
+// then the c terms in order c = 0..C-1.
 //
 // What bounds it: a few hundred flops per output and a few KB per call, so
 // the launch and the host's wrapper.  The design keeps the device side to

@@ -24,11 +24,10 @@
 // the (B, 7) spectrum is written.
 //
 // Replaces: the host's loop over intervals in `jafs_spectrum_plain` on the
-// card (a launch of expm_action per interval, row_matmul for the ancient
-// map, the collapse and the last term, torch ops for the pulses, the
-// last interval's solve and ~54 adds).  No JAX counterpart is a
-// pallas_call: the JAX package runs the spectrum as XLA loops
-// (misti_tpu/kernels/expm.py:235-310).
+// card (a launch per interval, row_matmul for the ancient map, the collapse
+// and the last term, torch ops for the pulses, the last interval's solve and
+// ~54 adds).  No JAX counterpart is a pallas_call: the JAX package runs the
+// spectrum as XLA loops (misti_tpu/kernels/expm.py:235-310).
 //
 // Design.  What bounds it is latency: per lane a chain of some hundreds of
 // dependent sparse matvecs (each interval's sub-steps times the degree),
@@ -36,17 +35,18 @@
 // allocation and an HBM round trip between links.  So many independent
 // lanes are in flight, each on as few threads as share a term:
 // * a warp per lane for the 44-state intervals (thread g owns states g and
-//   g + 32), as expm_action.cu does at n = 44;
+//   g + 32);
 // * the lane stays on its warp for the 8-state intervals, on its first 8
 //   threads (a state each; the other 24 leave).  Regrouping four lanes into
-//   one warp, as expm_action.cu's 8-state instance does, would need a
-//   block-wide barrier after the lanes' 44-state chains, which differ in
-//   length from lane to lane; the 8-state chain is the shorter part;
-// * every interval runs the series code of expm_action.cu (one header), so
-//   each interval's values are that kernel's, bit for bit; the products
-//   with constant matrices are row_matmul's FMA chains, so the carried state
-//   and the summed terms are bitwise those of the per-interval path.  The
-//   pulses and the last interval's elimination follow their plain
+//   one warp would need a block-wide barrier after the lanes' 44-state
+//   chains, which differ in length from lane to lane; the 8-state chain is
+//   the shorter part;
+// * every interval runs expm_series.cuh, whose values are those of its
+//   plain version (kernels/expm.py expm_action_pair_plain) on the card, bit
+//   for bit; the products with constant matrices are row_matmul's FMA
+//   chains, so the carried state and the summed terms are bitwise those of
+//   the per-interval path (jafs_spectrum_plain on the card).  The pulses
+//   and the last interval's elimination follow their plain
 //   versions' arithmetic, not their library's order: equal to a tolerance;
 // * tables are read in place with a lane stride (0: one row for every
 //   lane), so the host makes no copy.

@@ -1,18 +1,16 @@
 """Batched matrix exponentials and their actions for small CTMCs (torch).
 
-Only what the likelihood slice uses.  ``expm_action_pair`` is one
+Only what the likelihood slice uses.  ``expm_action_pair_plain`` is one
 interval of the spectrum's per-interval path (engine/likelihood.py
-`jafs_spectrum_plain`; on the card the main path runs the whole spectrum
-in one launch, kernels/spectrum.py): (E p0, N1 p0) by Taylor sub-stepping
-against a static stacked basis.  On the card it is one launch of the expm_action kernel per
-call (kernels/expm_action.py); its plain version
-``expm_action_pair_plain`` forms each lane's generator once from the
-bases' nonzeros (`SparseBasis`) and multiplies each Taylor term by it over
-those nonzeros, in the kernel's order.  Both give a lane a value that does
-not depend on its batch.  ``expm``
-and ``expm_m1`` are fixed-structure scaling-and-squaring Taylor-18
-(Paterson-Stockmeyer) references for the tests.  All functions are
-batch-first: matrices (..., n, n), vectors (B, n).
+`jafs_spectrum_plain`, the CPU's spectrum and, on the card, the spectrum
+kernel's reference; the main path on the card runs the whole spectrum in
+one launch, kernels/spectrum.py): (E p0, N1 p0) by Taylor sub-stepping
+against a static stacked basis.  It forms each lane's generator once from
+the bases' nonzeros (`SparseBasis`) and multiplies each Taylor term by it
+over those nonzeros, in the spectrum kernel's order, so a lane's value does
+not depend on its batch.  ``expm`` and ``expm_m1`` are fixed-structure
+scaling-and-squaring Taylor-18 (Paterson-Stockmeyer) references for the
+tests.  All functions are batch-first: matrices (..., n, n), vectors (B, n).
 """
 
 from __future__ import annotations
@@ -23,12 +21,11 @@ import math
 import numpy as np
 import torch
 
-from .expm_action import expm_action
 from .row_matmul import row_matmul
 
 _THETA_TAYLOR = 1.0  # scale so ||A||_1 <= 1: Taylor-18 truncation ~ 2e-16
-# The spectrum's series, wherever it runs (`expm_action_pair`, its plain
-# version, kernels/spectrum.py): sub-steps of norm <= THETA, Taylor degree
+# The spectrum's series, wherever it runs (`expm_action_pair_plain`,
+# kernels/spectrum.py): sub-steps of norm <= THETA, Taylor degree
 # DEGREE, at most MAX_SUBSTEPS sub-steps an interval (NaN past them).
 THETA, DEGREE, MAX_SUBSTEPS = 2.0, 20, 1024
 _MAX_SQUARINGS = 30
@@ -86,7 +83,7 @@ def expm_m1(a: torch.Tensor, max_squarings: int = _MAX_SQUARINGS) -> torch.Tenso
 
 def substep_counts(coeffs: torch.Tensor, basis_norms, t, theta: float = THETA,
                    max_substeps: int = MAX_SUBSTEPS):
-    """(m, overflow) of `expm_action_pair` for coeffs (..., c): the Taylor
+    """(m, overflow) of `expm_action_pair_plain` for coeffs (..., c): the Taylor
     sub-step count per lane and the lanes past the cost cap (NaN too)."""
     t = torch.as_tensor(t, dtype=coeffs.dtype, device=coeffs.device)
     norms = torch.as_tensor(basis_norms, dtype=coeffs.dtype, device=coeffs.device)
@@ -235,20 +232,3 @@ def expm_action_pair_plain(basis: SparseBasis, coeffs: torch.Tensor, basis_norms
     proj = row_matmul(acc, jsfs)
     return p, acc, proj if catmask is None else proj * catmask
 
-
-def expm_action_pair(basis: SparseBasis, coeffs: torch.Tensor, basis_norms,
-                     t, p0: torch.Tensor, theta: float = THETA,
-                     degree: int = DEGREE, max_substeps: int = MAX_SUBSTEPS,
-                     jsfs: torch.Tensor | None = None,
-                     catmask: torch.Tensor | None = None):
-    """`expm_action_pair_plain` on the CPU; on a CUDA tensor one launch of
-    the expm_action kernel (kernels/expm_action.py), which computes each
-    lane's sub-step count on the card, or raises.  ``basis`` is a
-    `SparseBasis` (its tables on p0's device).  Returns (E p0, N1 p0), and
-    with ``jsfs`` also the projection."""
-    if p0.device.type == "cpu":
-        return expm_action_pair_plain(basis, coeffs, basis_norms, t, p0, theta, degree,
-                                      max_substeps, jsfs=jsfs, catmask=catmask)
-    out = expm_action(basis, coeffs, basis_norms, t, p0, theta=theta, degree=degree,
-                      max_substeps=max_substeps, jsfs=jsfs, catmask=catmask)
-    return out if jsfs is not None else out[:2]

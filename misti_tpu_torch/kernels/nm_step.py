@@ -61,7 +61,7 @@ def build_jobs(force: bool = False) -> list:
     `correction_fused.compile_libs`, built without FMA contraction so that
     each expression rounds as its torch op does; without ``force`` only if
     stale."""
-    jobs = [(_LIB_PATH, _CSRC, _F64, False, ("--fmad=false",))]
+    jobs = [(_LIB_PATH, _CSRC, ("--fmad=false",))]
     return jobs if force else stale(jobs)
 
 

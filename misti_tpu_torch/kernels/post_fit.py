@@ -79,7 +79,7 @@ def ect_layout(n: int, group: int) -> dict:
 def build_jobs(force: bool = False) -> list:
     """The nvcc job of this kernel's library (float64) for
     `correction_fused.compile_libs`; without ``force`` only if stale."""
-    jobs = [(_LIB_PATH, _CSRC, torch.float64, False, ())]
+    jobs = [(_LIB_PATH, _CSRC, ())]
     return jobs if force else stale(jobs)
 
 

@@ -1,12 +1,14 @@
 """Row-vector products with a constant matrix: CUDA kernel wrapper and its
 plain version.
 
-``row_matmul(v, K, cs)`` = sum_c cs[:, c] * (v @ K)[:, c*m:(c+1)*m]: the
-spectrum's products with its constant matrices (engine/likelihood.py
-`jafs_spectrum_plain`: the collapse map, the last interval's JSFS projection, the
-ancient-sample map; kernels/expm.py `expm_action_pair_plain`: N1 p0's
-projection) and, with ``cs``, a weighted product with the stacked basis
-(the width probe, probe.py).
+``row_matmul(v, K, cs)`` = sum_c cs[:, c] * (v @ K)[:, c*m:(c+1)*m].  Its
+one job is the products of the spectrum's per-interval path
+(engine/likelihood.py `jafs_spectrum_plain`: the collapse map, the last
+interval's JSFS projection, the ancient-sample map; kernels/expm.py
+`expm_action_pair_plain`: N1 p0's projection), which on the card is the
+reference the one-launch spectrum kernel (csrc/spectrum.cu) is held to.
+No path of the program launches it.  With ``cs`` it is a weighted product
+with the stacked basis (the width probe, probe.py).
 
 * `row_matmul` is the wrapper: CPU tensors take `row_matmul_plain`, CUDA
   tensors launch the hand-written kernel (csrc/row_matmul.cu, float64
@@ -14,9 +16,12 @@ projection) and, with ``cs``, a weighted product with the stacked basis
   kernel launches.
 * `row_matmul_plain` is the same sums in torch ops.
 
-On the card the kernel keeps a lane's value independent of the batch it is
-evaluated in, which a library GEMM does not (its algorithm follows the
-number of rows); the sweep's staged compaction relies on that.
+Why a kernel for a reference: the spectrum kernel computes these products
+as row_matmul's chains of fused multiply-adds, so the reference's carried
+state and terms are bitwise the kernel's.  The plain version, ``v @ K``, is
+a library GEMM that picks its algorithm by the number of rows: on the card
+it is neither bitwise the kernel's chain nor the same for a lane in every
+batch width.
 """
 
 from __future__ import annotations
@@ -47,7 +52,7 @@ def row_matmul_plain(v: torch.Tensor, K: torch.Tensor, cs: torch.Tensor | None =
 def build_jobs(force: bool = False) -> list:
     """The nvcc job of this kernel's library (float64) for
     `correction_fused.compile_libs`; without ``force`` only if stale."""
-    jobs = [(_LIB_PATH, _CSRC, torch.float64, False, ())]
+    jobs = [(_LIB_PATH, _CSRC, ())]
     return jobs if force else stale(jobs)
 
 

@@ -5,9 +5,9 @@ the 44-state pre-split intervals with the ancient sample and the pulses,
 the collapse, the 8-state post-split intervals, the last interval's
 occupancy and the sum of every interval's JSFS term in the plain
 version's order, writing only the (B, 7) spectrum.  Each interval runs the
-series code of the per-interval kernel (csrc/expm_series.cuh, shared with
-csrc/expm_action.cu), at the series settings of kernels/expm.py
-(THETA, DEGREE, MAX_SUBSTEPS).  Float64 only, the likelihood's dtype
+series of csrc/expm_series.cuh, each value rounded as kernels/expm.py
+`expm_action_pair_plain` rounds it on the card, at the series settings of
+kernels/expm.py (THETA, DEGREE, MAX_SUBSTEPS).  Float64 only, the likelihood's dtype
 (config.LLH_DTYPE).  Its plain version is engine/likelihood.py
 `jafs_spectrum_plain`; `jafs_spectrum` there takes this kernel, on the
 inputs `pack_spectrum` packs, for CUDA tensors.
@@ -158,7 +158,7 @@ def pulse_nonzeros(pulse_coeff: np.ndarray, pulse_k: np.ndarray):
 def build_jobs(force: bool = False) -> list:
     """The nvcc job of this kernel's library for
     `correction_fused.compile_libs`; without ``force`` only if stale."""
-    jobs = [(_LIB_PATH, _CSRC, torch.float64, False, ())]
+    jobs = [(_LIB_PATH, _CSRC, ())]
     return jobs if force else stale(jobs)
 
 

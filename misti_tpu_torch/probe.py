@@ -17,7 +17,7 @@ in.  It takes the sweep's first Nelder-Mead iteration (808 cells x
   stage's output in both runs (the mapped kernel input, the correction
   kernel, the post-split fit (its kernel on the card, its root solves on
   the CPU), the last rate,
-  the smoothing, each interval's ``expm_action_pair`` and the last
+  the smoothing, each interval's ``expm_action_pair_plain`` and the last
   interval's solve (on the CPU; on the card the spectrum is one kernel
   launch and makes neither call), the spectrum, the llh) and compares them
   on those lanes, bitwise and by the largest difference; cpfit and ECT;
@@ -30,10 +30,9 @@ in.  It takes the sweep's first Nelder-Mead iteration (808 cells x
 
 ``host`` splits the host time per call of the one-launch spectrum's
 wrapper (`spectrum_kernel`, 27 + 27 intervals of per-lane tables, and the
-packing of its inputs, `pack_spectrum`), of the per-interval path's two
-hand kernels' wrappers (`row_matmul` at the collapse map, `expm_action` at
-the 44-state basis with the projection) and of the post-split fit's
-(`post_fit`, cpfit, 33 intervals of per-lane tables), at the sweep's 4848
+packing of its inputs, `pack_spectrum`), of the per-interval path's hand
+kernel's wrapper (`row_matmul` at the collapse map) and of the post-split
+fit's (`post_fit`, cpfit, 33 intervals of per-lane tables), at the sweep's 4848
 lanes, into its steps, each timed alone with the host clock over 200 calls
 and no synchronise: the whole wrapper, the ctypes call that launches the
 kernel (arguments made beforehand), the output allocations and the stream
@@ -131,7 +130,8 @@ class _Trace:
 
     PATCHES = ((sf, "fused_correction"), (sf, "post_split_fit"), (sf, "last_rate"),
                (sf, "smooth_rates"), (sf, "jafs_spectrum"), (sf, "multinomial_llh"),
-               (lk, "expm_action_pair"), (lk, "fit_single_pop"), (torch.linalg, "solve_ex"))
+               (lk, "expm_action_pair_plain"), (lk, "fit_single_pop"),
+               (torch.linalg, "solve_ex"))
 
     def __init__(self, lanes=None, keep=()):
         self.lanes, self.keep = lanes, set(keep)
@@ -225,23 +225,24 @@ def op_checks(fs, tr, st, params, rng_seed=0):
     perm = torch.randperm(B, generator=gen).to(dev)
     inputs = tr.inputs
     spec_args = inputs["jafs_spectrum[0]"][0]
-    if "expm_action_pair[10]" not in inputs:
+    series = "expm_action_pair_plain"
+    if f"{series}[10]" not in inputs:
         # the card: the spectrum is one launch; its per-interval path's
         # calls come from replaying it through the plain version
-        sub = _Trace(keep=("expm_action_pair", "solve_ex"))
+        sub = _Trace(keep=(series, "solve_ex"))
         with sub.patched(B):
             lk.jafs_spectrum_plain(*spec_args)
         inputs = {**sub.inputs, **inputs}
-    pre = inputs["expm_action_pair[10]"][0]  # (kmat, coeffs, norms, t, p0)
-    post_key = max((k for k in inputs if k.startswith("expm_action_pair")),
-                   key=lambda k: int(k[17:-1]))
+    pre = inputs[f"{series}[10]"][0]  # (kmat, coeffs, norms, t, p0)
+    post_key = max((k for k in inputs if k.startswith(f"{series}[")),
+                   key=lambda k: int(k[len(series) + 1:-1]))
     post = inputs[post_key][0]
     v44, c4 = pre[4].contiguous(), pre[1].contiguous()
     v8, c1 = post[4].contiguous(), post[1].contiguous()
     a8, b8 = inputs["solve_ex[0]"][0]
     psf_args, psf_kw = inputs["post_split_fit[0]"]
     sm_args = inputs["smooth_rates[0]"][0]
-    n1p = lk.expm_action_pair(*pre[:4], v44)[1].contiguous()
+    n1p = lk.expm_action_pair_plain(*pre[:4], v44)[1].contiguous()
     gen_np = np.random.default_rng(rng_seed)
     terms = torch.as_tensor(gen_np.uniform(0.0, 1e-3, (27, B, 7)), dtype=dt, device=dev)
     dec = torch.as_tensor(gen_np.uniform(0.0, 0.1, (B, 30, 2)), dtype=dt, device=dev)
@@ -291,8 +292,8 @@ def op_checks(fs, tr, st, params, rng_seed=0):
         "sum(1) (B,30,2)": (lambda t: t.sum(1), (dec,)),
         "jafs_spectrum (the one-launch spectrum kernel on the card)": (
             spectrum, (lc, mi, pu, tp, tq, cm, smask, rebase)),
-        "expm_action_pair pre-split (the expm_action kernel on the card)": (
-            lambda c, t, v: torch.cat(lk.expm_action_pair(pre[0], c, pre[2], t, v), -1),
+        "expm_action_pair_plain pre-split": (
+            lambda c, t, v: torch.cat(lk.expm_action_pair_plain(pre[0], c, pre[2], t, v), -1),
             (c4, pre[3], v44)),
         "fit_single_pop": (lambda a, b, c: kc.fit_single_pop(a, b, c),
                            inputs["fit_single_pop[0]"][0] if "fit_single_pop[0]" in inputs
@@ -338,7 +339,7 @@ def width_main(args, emit):
         st, params, d7 = first_iteration_lanes(fs, data)
         B = st.shape[0]
         lanes = torch.arange(6 * args.cell, 6 * args.cell + 6, device=dev)
-        keep = ("expm_action_pair", "solve_ex", "post_split_fit", "smooth_rates",
+        keep = ("expm_action_pair_plain", "solve_ex", "post_split_fit", "smooth_rates",
                 "fit_single_pop", "jafs_spectrum")
         batch, llh_b = trace_llh(fs, st, params, d7, lanes, keep)
         alone, llh_a = trace_llh(fs, st[lanes], params[lanes], d7[lanes])
@@ -383,7 +384,6 @@ HOST_REPS = 200
 
 
 def host_main(args, emit):
-    from .kernels import expm_action as ea
     from .kernels import post_fit as pf
     from .kernels import row_matmul as rm
 
@@ -441,28 +441,6 @@ def host_main(args, emit):
                                    reps)}
     emit({"probe": "host", "kernel": "row_matmul", "instance": "collapse (B, 44) @ (44, 8)",
           "lanes": B, "reps": reps, "us": steps, "library_us": lib})
-
-    # expm_action at the 44-state basis, one interval of a per-lane table
-    sp, norms, jsfs = basis.sp2, basis.norms2, basis.jsfs2
-    coeffs = tens(rng.uniform(0.0, 2.0, (B, 3, 4)))[:, 1]
-    t = tens(rng.uniform(0.0, 0.05, (B, 3)))[:, 1]
-    cm = tens(rng.uniform(0.0, 1.0, (B, 7)) > 0.3)
-    p0 = torch.softmax(tens(rng.uniform(0.0, 1.0, (B, 44))), -1)
-    ep, n1p, proj = (p0.new_empty((B, 44)), p0.new_empty((B, 44)), p0.new_empty((B, 7)))
-    fn = ea._load()
-    a = (sp.src.data_ptr(), sp.slot.data_ptr(), sp.vals.data_ptr(), sp.nnz, sp.L,
-         coeffs.data_ptr(), coeffs.stride(0), norms.data_ptr(), t.data_ptr(), t.stride(0),
-         p0.data_ptr(), jsfs.data_ptr(), 7, cm.data_ptr(), cm.stride(0), ep.data_ptr(),
-         n1p.data_ptr(), proj.data_ptr(), B, 44, 4, 2.0, 1024, 20, idx, stream())
-    steps = {"wrapper": _host_us(lambda: ea.expm_action(sp, coeffs, norms, t, p0, jsfs=jsfs,
-                                                        catmask=cm), reps),
-             "launch": _host_us(lambda: fn(*a), reps),
-             "alloc": _host_us(lambda: (torch.empty_like(p0), torch.empty_like(p0),
-                                        p0.new_empty((B, 7))), reps),
-             "stream": _host_us(stream, reps)}
-    steps["checks_and_rest"] = steps["wrapper"] - steps["launch"] - steps["alloc"] - steps["stream"]
-    emit({"probe": "host", "kernel": "expm_action", "instance": "k2 (n = 44, C = 4) with the "
-          "projection, per-lane t", "lanes": B, "reps": reps, "us": steps})
 
     # post_fit, cpfit (a short kernel: the queue does not fill), per-lane tables
     n = 33

@@ -1,11 +1,11 @@
 """Compare builds of the correction-sweep kernel on one card, in turns.
 
     python -m misti_tpu_torch.sweep_ab NAME=SOURCE[:FLAG,FLAG...] ... \
-        [--dtypes f32,f64] [--cycles 3] [--reps 20] [--out FILE]
+        [--cycles 3] [--reps 20] [--out FILE]
 
 Each variant is a kernel source (a path) and extra nvcc flags (``-D`` design
-knobs, ``--fmad=false``).  Every (variant, dtype, residual mode) library is
-built with one nvcc, all started together.  On the bench workload's sweep
+knobs, ``--fmad=false``).  Every (variant, residual mode) library is built
+in float64, the likelihood's dtype, with one nvcc, all started together.  On the bench workload's sweep
 input (64 intervals, split 28, 4096 candidates, the main path's shapes) the
 script then
 
@@ -39,7 +39,9 @@ from .engine.likelihood import build_likelihood
 from .kernels import correction_fused as cf
 
 S_SPLIT, BATCH = bench.SPLIT, 4096
-DTYPES = {"f32": torch.float32, "f64": torch.float64}
+# older sources take their scalar type from MISTI_T; the current one is
+# float64 only and ignores it
+BUILD_FLAGS = ("-DMISTI_T=double",)
 
 
 def gpu_line() -> str:
@@ -54,10 +56,10 @@ def parse_variant(text: str):
     return name, Path(src), tuple(f for f in flags.split(",") if f)
 
 
-def main_path_input(mode: str, dtype, dev):
+def main_path_input(mode: str, dev):
     """The sweep input and options that llh_batch hands the kernel."""
-    lik = build_likelihood(bench.bench_spec(mode), device=dev, dtype=dtype)
-    mi, pu = lik.map_params(bench.bench_params(BATCH, dev, dtype))
+    lik = build_likelihood(bench.bench_spec(mode), device=dev, dtype=torch.float64)
+    mi, pu = lik.map_params(bench.bench_params(BATCH, dev, torch.float64))
     s = lik.spec.splitT
     return cf.sweep_inputs(mi[:, :s], pu[:, :s], *lik.sweep_tables), lik.sweep_opts
 
@@ -97,7 +99,6 @@ def ptxas_lines(log: str) -> list:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("variants", nargs="+")
-    ap.add_argument("--dtypes", default="f32,f64")
     ap.add_argument("--cycles", type=int, default=3)
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--out", default="build/sweep_ab.json")
@@ -109,15 +110,14 @@ def main(argv=None) -> int:
     gpu = gpu_line()
     print(f"gpu: {gpu}; torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
     variants = [parse_variant(v) for v in args.variants]
-    dtypes = [d for d in args.dtypes.split(",") if d]
     modes = ("cpfit", "ect")
 
     jobs = []
     for name, src, flags in variants:
-        for d in dtypes:
-            for m in modes:
-                out = cf.BUILD_DIR / "ab" / f"{name}_{d}_{m}.so"
-                jobs.append((out, src, DTYPES[d], m == "cpfit", flags))
+        for m in modes:
+            out = cf.BUILD_DIR / "ab" / f"{name}_{m}.so"
+            jobs.append((out, src, (*BUILD_FLAGS, f"-DMISTI_CPFIT={int(m == 'cpfit')}",
+                                    *flags)))
     t0 = time.perf_counter()
     report = cf.compile_libs(jobs, check=False)
     print(f"build: {len(jobs)} libraries in {time.perf_counter() - t0:.1f} s", flush=True)
@@ -141,44 +141,43 @@ def main(argv=None) -> int:
         for ln in ptxas_lines(log):
             print(f"    {ln}", flush=True)
 
-    for d in dtypes:
-        for m in modes:
-            inp, opts = main_path_input("" if m == "cpfit" else "ect", DTYPES[d], dev)
-            want = cf.correction_sweep_plain(inp, **opts)
-            fin = torch.isfinite(want)
-            runs = {}
-            for name, _, _ in variants:
-                key = f"{name}_{d}_{m}.so"
-                if key in libs:
-                    runs[name] = launcher(libs[key], inp, opts)
-            times = {n: [] for n in runs}
-            order = list(runs)
-            for _ in range(args.cycles):
-                for n in order + order[::-1]:
-                    times[n].append(cuda_ms(runs[n], args.reps))
-            for n, run in runs.items():
-                got = run().clone()
-                torch.cuda.synchronize()
-                lc, lw = got[:2], want[:2]
-                rel = ((lc - lw).abs() / lw.abs())[fin[:2]]
-                lanes = int(((lc - lw).abs() > 1e-6 * lw.abs()).logical_and(fin[:2])
-                            .any(0).any(0).sum())
-                case = {
-                    "variant": n, "dtype": d, "mode": m, "s": inp.shape[1], "B": inp.shape[2],
-                    "ms": sorted(times[n]), "ms_median": sorted(times[n])[len(times[n]) // 2],
-                    "max_abs_lc": float((lc - lw)[fin[:2]].abs().max()),
-                    "max_abs_p": float((got[2:] - want[2:])[fin[2:]].abs().max()),
-                    "max_rel_lc": float(rel.max()) if rel.numel() else 0.0,
-                    "lanes_lc_rel_gt_1e-6": lanes,
-                    "nan_masks_equal": bool(torch.equal(torch.isnan(got), torch.isnan(want))),
-                }
-                result["cases"].append(case)
-                print(f"{d} {m} {n}: median {case['ms_median']:.4f} ms "
-                      f"(min {min(times[n]):.4f}, max {max(times[n]):.4f}, {len(times[n])} x "
-                      f"{args.reps} launches); vs plain max|dlc| {case['max_abs_lc']:.3e} "
-                      f"max|dp| {case['max_abs_p']:.3e} max rel dlc {case['max_rel_lc']:.3e}, "
-                      f"{lanes} lanes > 1e-6 rel, NaN masks equal {case['nan_masks_equal']}",
-                      flush=True)
+    for m in modes:
+        inp, opts = main_path_input("" if m == "cpfit" else "ect", dev)
+        want = cf.correction_sweep_plain(inp, **opts)
+        fin = torch.isfinite(want)
+        runs = {}
+        for name, _, _ in variants:
+            key = f"{name}_{m}.so"
+            if key in libs:
+                runs[name] = launcher(libs[key], inp, opts)
+        times = {n: [] for n in runs}
+        order = list(runs)
+        for _ in range(args.cycles):
+            for n in order + order[::-1]:
+                times[n].append(cuda_ms(runs[n], args.reps))
+        for n, run in runs.items():
+            got = run().clone()
+            torch.cuda.synchronize()
+            lc, lw = got[:2], want[:2]
+            rel = ((lc - lw).abs() / lw.abs())[fin[:2]]
+            lanes = int(((lc - lw).abs() > 1e-6 * lw.abs()).logical_and(fin[:2])
+                        .any(0).any(0).sum())
+            case = {
+                "variant": n, "mode": m, "s": inp.shape[1], "B": inp.shape[2],
+                "ms": sorted(times[n]), "ms_median": sorted(times[n])[len(times[n]) // 2],
+                "max_abs_lc": float((lc - lw)[fin[:2]].abs().max()),
+                "max_abs_p": float((got[2:] - want[2:])[fin[2:]].abs().max()),
+                "max_rel_lc": float(rel.max()) if rel.numel() else 0.0,
+                "lanes_lc_rel_gt_1e-6": lanes,
+                "nan_masks_equal": bool(torch.equal(torch.isnan(got), torch.isnan(want))),
+            }
+            result["cases"].append(case)
+            print(f"{m} {n}: median {case['ms_median']:.4f} ms "
+                  f"(min {min(times[n]):.4f}, max {max(times[n]):.4f}, {len(times[n])} x "
+                  f"{args.reps} launches); vs plain max|dlc| {case['max_abs_lc']:.3e} "
+                  f"max|dp| {case['max_abs_p']:.3e} max rel dlc {case['max_rel_lc']:.3e}, "
+                  f"{lanes} lanes > 1e-6 rel, NaN masks equal {case['nan_masks_equal']}",
+                  flush=True)
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)
     Path(args.out).write_text(json.dumps(result, indent=1))
     print(gpu)

@@ -131,7 +131,7 @@ def measure(device: str, rows: int) -> dict:
         try:
             counters[name] = getattr(importlib.import_module(f"misti_tpu_torch.kernels.{name}"),
                                      name)
-        except ImportError:
+        except (ImportError, AttributeError):
             pass
 
     from misti_tpu_torch.bench import bench_params, bench_spec

@@ -226,9 +226,9 @@ def test_fit_single_pop_bisection_reaches_the_last_ulp(regime):
     assert int(up.sum()) > (_N_DRAWS // 2 if regime == "straddle" else -1)
 
 
-def _sweep_input(seed, dtype=torch.float64, device="cpu"):
+def _sweep_input(seed, device="cpu"):
     lh, times, mi, pu = draw(seed, pulse=True)
-    t = lambda a: torch.tensor(a, dtype=dtype, device=device)
+    t = lambda a: torch.tensor(a, dtype=torch.float64, device=device)
     return cf.sweep_inputs(t(mi), t(pu), t(lh), t(times))
 
 
@@ -251,25 +251,27 @@ def test_sweep_work_counts_converged_lanes_only():
     assert cf.sweep_ops(work, S, B, **opts) > 0
 
 
-@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
-def test_kernel_matches_plain_on_card(cuda, dtype):
-    inp = _sweep_input(41, dtype, cuda)
+def test_kernel_matches_plain_on_card(cuda):
+    inp = _sweep_input(41, cuda)
     for cpfit in (True, False):
         before = cf.correction_sweep.launches
         got = cf.correction_sweep(inp, cpfit=cpfit)
         torch.cuda.synchronize()
         assert cf.correction_sweep.launches == before + 1
         want = cf.correction_sweep_plain(inp, cpfit=cpfit)
-        rtol, atol = (1e-6, 1e-9) if dtype == torch.float64 else (1e-4, 1e-6)
-        torch.testing.assert_close(got, want, rtol=rtol, atol=atol, equal_nan=True)
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-9, equal_nan=True)
 
 
 def test_kernel_rejects_what_it_does_not_take(cuda):
-    inp = _sweep_input(42, torch.float64, cuda)
+    inp = _sweep_input(42, cuda)
     with pytest.raises(ValueError):
         cf.correction_sweep(inp.transpose(1, 2), cpfit=True)  # not contiguous
     with pytest.raises(TypeError):
         cf.correction_sweep(inp.half(), cpfit=True)
+    before = cf.correction_sweep.launches
+    with pytest.raises(TypeError):  # built in float64 only
+        cf.correction_sweep(inp.float(), cpfit=True)
+    assert cf.correction_sweep.launches == before
     with pytest.raises(ValueError):
         cf.correction_sweep(inp[:6].contiguous(), cpfit=True)
     with pytest.raises(ValueError):
@@ -290,7 +292,7 @@ def _variant_id(v):
             f"-{'pulse' if v['has_pulse'] else 'nopulse'}{'-perlane' if v['per_lane'] else ''}")
 
 
-def _variant_input(v, dtype, device, s=12, b=64):
+def _variant_input(v, device, s=12, b=64):
     """A seeded (7, s, b) sweep input for one variant; one lane in eight
     without migration, so both branches of a mixed warp run."""
     rng = np.random.default_rng(51)
@@ -308,29 +310,18 @@ def _variant_input(v, dtype, device, s=12, b=64):
         for lane in range(b):
             if lane % 5:
                 times[lane, s - lane % 5:] = 0.0
-    t = lambda a: torch.tensor(a, dtype=dtype, device=device)
+    t = lambda a: torch.tensor(a, dtype=torch.float64, device=device)
     return cf.sweep_inputs(t(mi), t(pu), t(lh), t(times))
 
 
-@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
 @pytest.mark.parametrize("variant", VARIANTS, ids=_variant_id)
-def test_every_kernel_variant_matches_plain_on_card(cuda, variant, dtype):
+def test_every_kernel_variant_matches_plain_on_card(cuda, variant):
     """Built with FMA contraction, the kernel matches its plain version to
-    rtol 1e-4 / atol 1e-6 in float32 and 1e-6 / 1e-9 in float64 (the
-    tolerances chip_smoke.py holds it to), with equal NaN masks."""
-    inp = _variant_input(variant, dtype, cuda)
+    rtol 1e-6 / atol 1e-9 (the tolerances chip_smoke.py holds it to), with
+    equal NaN masks."""
+    inp = _variant_input(variant, cuda)
     opts = {k: variant[k] for k in ("cpfit", "static_no_mig", "has_pulse")}
     got = cf.correction_sweep(inp, **opts)
     torch.cuda.synchronize()
     want = cf.correction_sweep_plain(inp, **opts)
-    rtol, atol = (1e-6, 1e-9) if dtype == torch.float64 else (1e-4, 1e-6)
-    torch.testing.assert_close(got, want, rtol=rtol, atol=atol, equal_nan=True)
-
-
-def test_no_float32_instance_spills(cuda):
-    """misti_correction_sweep_attrs: every float32 template instance runs
-    without local memory and fits at least one block per SM at s = 28."""
-    for cpfit in (True, False):
-        for a in cf.kernel_attrs(torch.float32, cpfit, 28):
-            assert a["local_bytes"] == 0, a
-            assert a["registers"] > 0 and a["blocks_per_sm"] >= 1, a
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-9, equal_nan=True)

@@ -1,16 +1,18 @@
 """The spectrum's per-interval action (misti_tpu_torch/kernels/expm.py
-`expm_action_pair` and its kernel, kernels/expm_action.py).
+`expm_action_pair_plain`) and its work meters (kernels/expm_action.py).
 
 On the CPU: the plain version (each lane's generator formed once over the
 bases' nonzeros, every Taylor term a matvec over them) against the loop it
-was before the kernel (each Taylor term a dense `row_matmul` product with
-the stacked basis and four torch ops), at both of the spectrum's instances
-and in both dtypes, with per-lane interval lengths that hold zeros, ragged
-sub-step counts, runaway lanes and a lane whose p0 holds a NaN at t == 0;
-the basis's nonzero table and the once-formed generator; its folded JSFS
-projection against `row_matmul(N1 p0, jsfs)`; the wrapper taking the plain
-version for CPU tensors.  The CUDA kernel itself, built in float64 only
-(the likelihood's dtype), runs only on a card: those tests skip here.
+was before (each Taylor term a dense `row_matmul` product with the stacked
+basis and four torch ops), at both of the spectrum's instances and in both
+dtypes, with per-lane interval lengths that hold zeros, ragged sub-step
+counts, runaway lanes and a lane whose p0 holds a NaN at t == 0; the
+basis's nonzero table and the once-formed generator; its folded JSFS
+projection against `row_matmul(N1 p0, jsfs)`; the spectrum's per-interval
+path (`jafs_spectrum_plain`) running each interval through it; the meters'
+counts and their series settings, which are the spectrum kernel's.  On the
+card the spectrum kernel is held to this path
+(tests/test_torch_spectrum_kernel.py).
 """
 
 import numpy as np
@@ -28,16 +30,10 @@ NAN_P0 = 10  # a lane with t == 0 whose p0 holds a NaN
 DTYPES = [torch.float64, torch.float32]
 
 
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the expm_action kernel has no CPU form")
-    return torch.device("cuda")
-
 
 def loop_before_the_kernel(kmat, coeffs, basis_norms, t, p0, theta=2.0, degree=20,
                            max_substeps=1024):
-    """`expm_action_pair` as it was before the kernel, on the CPU."""
+    """`expm_action_pair_plain` as it was before its sparse form."""
     m, overflow = kexpm.substep_counts(coeffs, basis_norms, t, theta, max_substeps)
     n_loop = int(m.max())
     h = torch.as_tensor(t, dtype=p0.dtype, device=p0.device) / m
@@ -161,19 +157,64 @@ def test_folded_projection_equals_row_matmul(inst, dtype):
         assert torch.equal(out[2].nan_to_num(), want.nan_to_num())
 
 
-def test_wrapper_takes_the_plain_version_on_the_cpu():
-    """CPU tensors: `expm_action_pair` is the plain version and launches
-    nothing; the kernel's own wrapper refuses them."""
-    sp, coeffs, norms, t, p0, jsfs, cm = _inputs(INSTANCES[0], 13, torch.float64, seed=2)
-    before = kea.expm_action.launches
-    got = kexpm.expm_action_pair(sp, coeffs, norms, t, p0, jsfs=jsfs, catmask=cm)
-    want = kexpm.expm_action_pair_plain(sp, coeffs, norms, t, p0, jsfs=jsfs, catmask=cm)
-    assert len(got) == 3 and all(torch.equal(a.nan_to_num(), b.nan_to_num())
-                                 for a, b in zip(got, want))
-    assert len(kexpm.expm_action_pair(sp, coeffs, norms, t, p0)) == 2
-    assert kea.expm_action.launches == before
-    with pytest.raises(ValueError):
-        kea.expm_action(sp, coeffs, norms, t, p0)
+def _spectrum_inputs(B=5, s=4, n_post=3, seed=3):
+    """`jafs_spectrum`'s inputs after the basis: shared tables, the ancient
+    sample entering before interval 1, no pulse."""
+    rng = np.random.default_rng(seed)
+    tens = lambda a: torch.tensor(a, dtype=torch.float64)  # noqa: E731
+    lc = tens(rng.uniform(0.5, 2.0, (B, s + n_post + 1, 2)))
+    mi = tens(rng.uniform(0.0, 0.5, (B, s, 2)))
+    pu = torch.zeros((B, s, 2), dtype=torch.float64)
+    T_pre, T_post = tens(rng.uniform(0.05, 0.2, (1, s))), tens(rng.uniform(0.1, 0.3, (1, n_post)))
+    catmask = torch.ones((s, 7), dtype=torch.float64)
+    sample_at = [True if t == 1 else None for t in range(s)]
+    return lc, mi, pu, T_pre, T_post, catmask, sample_at, None, np.zeros((s, 2), dtype=bool)
+
+
+def test_the_per_interval_spectrum_runs_each_interval_through_the_plain_version(monkeypatch):
+    """On the CPU `jafs_spectrum` takes `jafs_spectrum_plain`, which runs each
+    of its s + n_post intervals as one `expm_action_pair_plain` call: the
+    44-state basis with the 44 x 7 projection before the split, the 8-state
+    one with the 8 x 7 projection after; counting the calls leaves the
+    spectrum as it was."""
+    from misti_tpu_torch.engine import likelihood as lk
+
+    basis = SpectrumBasis(torch.device("cpu"), torch.float64)
+    inp = _spectrum_inputs()
+    s, n_post = inp[3].shape[1], inp[4].shape[1]
+    want = lk.jafs_spectrum(basis, *inp)
+    seen, orig = [], kexpm.expm_action_pair_plain
+
+    def rec(sp, *a, **kw):
+        seen.append((sp.n, tuple(kw["jsfs"].shape)))
+        return orig(sp, *a, **kw)
+
+    monkeypatch.setattr(lk, "expm_action_pair_plain", rec)
+    got = lk.jafs_spectrum(basis, *inp)
+    assert torch.equal(got, want) and bool(torch.isfinite(got).all())
+    assert seen == [(44, (44, 7))] * s + [(8, (8, 7))] * n_post
+
+
+def test_meters_default_to_the_series_the_spectrum_kernel_runs():
+    """The meters' theta, degree and sub-step cap default to kernels/expm.py's
+    THETA, DEGREE and MAX_SUBSTEPS, the plain version's defaults and what the
+    spectrum kernel's arguments carry."""
+    import inspect
+
+    from misti_tpu_torch.kernels import spectrum as ksp
+
+    series = dict(theta=kexpm.THETA, degree=kexpm.DEGREE, max_substeps=kexpm.MAX_SUBSTEPS)
+    for fn in (kea.expm_action_ops, kexpm.expm_action_pair_plain):
+        params = inspect.signature(fn).parameters
+        assert {k: params[k].default for k in series} == series, fn.__name__
+    basis = SpectrumBasis(torch.device("cpu"), torch.float64)
+    a = ksp.pack_spectrum(basis, *_spectrum_inputs())
+    c = ksp.c_args(basis, a, torch.empty((a.B, 7), dtype=torch.float64))
+    assert (c.theta, c.degree, c.cap) == (series["theta"], series["degree"],
+                                          series["max_substeps"])
+    sp, coeffs, norms, t, _, _, _ = _inputs(INSTANCES[0], 9, torch.float64)
+    assert kea.expm_action_ops(sp, coeffs, norms, t, Q=7) == kea.expm_action_ops(
+        sp, coeffs, norms, t, theta=c.theta, degree=c.degree, max_substeps=c.cap, Q=7)
 
 
 def test_work_meter_counts_each_lanes_own_substeps():
@@ -181,8 +222,8 @@ def test_work_meter_counts_each_lanes_own_substeps():
     the batch's largest): per lane that runs the series the generator from
     the bases' nonzeros, per sub-step and term a matvec over the
     generator's nonzeros; no series where t == 0 or past the cap; bytes
-    from the operands once, the basis as the kernel reads it (its nonzero
-    tables, not the dense stacked basis)."""
+    from the operands once, the basis as its nonzero tables (not the dense
+    stacked basis)."""
     basis = SpectrumBasis(torch.device("cpu"), torch.float64)
     assert int(torch.count_nonzero(basis.k2)) == 264 and int(torch.count_nonzero(basis.k1)) == 18
 
@@ -209,88 +250,3 @@ def test_work_meter_counts_each_lanes_own_substeps():
     words = 4 * 196 + 3 * 4 + 4 + 3 + 3 * 44 + 44 * 7 + 3 * 7 + 2 * 3 * 44 + 3 * 7
     assert kea.expm_action_bytes(3, basis.sp2, itemsize=8, per_lane_t=True, Q=7,
                                  per_lane_catmask=True) == tables + words * 8
-
-
-# --- on the card ------------------------------------------------------------
-
-SUB_WIDTHS = (1, 6, 42, 960)
-
-
-def _same(a, b):
-    """Bitwise equal values, NaN where NaN (-0 equals 0)."""
-    return torch.equal(a.isnan(), b.isnan()) and torch.equal(a.nan_to_num(), b.nan_to_num())
-
-
-@pytest.mark.parametrize("inst", INSTANCES, ids=[i[0] for i in INSTANCES])
-def test_kernel_matches_plain_on_card(cuda, inst):
-    """One float64 launch against the plain version: rtol 1e-6 / atol 1e-9,
-    equal NaN masks (the NaN p0 lane's too), and bitwise (the kernel keeps
-    the plain version's order and roundings); a batch that fills no whole
-    block (4851 lanes: not a multiple of 4 or 16 lanes a block); the first
-    1 / 6 / 42 / 960 lanes alone bitwise as in the batch; the launch
-    counter."""
-    rtol, atol = 1e-6, 1e-9
-    sp, coeffs, norms, t, p0, jsfs, cm = _inputs(inst, 4851, torch.float64, cuda)
-    before = kea.expm_action.launches
-    got = kexpm.expm_action_pair(sp, coeffs, norms, t, p0, jsfs=jsfs, catmask=cm)
-    torch.cuda.synchronize()
-    assert kea.expm_action.launches == before + 1
-    want = kexpm.expm_action_pair_plain(sp, coeffs, norms, t, p0, jsfs=jsfs, catmask=cm)
-    for g, w in zip(got, want):
-        assert torch.equal(g.isnan(), w.isnan())
-        torch.testing.assert_close(g.nan_to_num(), w.nan_to_num(), rtol=rtol, atol=atol)
-        assert _same(g, w)
-    for w in SUB_WIDTHS:
-        part = kexpm.expm_action_pair(sp, coeffs[:w], norms, t[:w], p0[:w], jsfs=jsfs,
-                                      catmask=cm[:w])
-        for a, b in zip(part, got):
-            assert _same(a, b[:w]), w
-
-
-@pytest.mark.parametrize("inst", INSTANCES, ids=[i[0] for i in INSTANCES])
-def test_kernel_skips_t_zero_lanes_on_card(cuda, inst):
-    """Blocks whose lanes all have t == 0 (the first 64 lanes: 16 blocks at
-    k2, 4 at k1), and a batch of nothing else: p0 and 0 where p0 is finite,
-    NaN spread as the series spreads it where it is not, past the cap NaN;
-    bitwise the plain version, which runs the series."""
-    sp, coeffs, norms, t, p0, jsfs, cm = _inputs(inst, 300, torch.float64, cuda, seed=3)
-    t[:64] = 0.0
-    for B in (300, 64):
-        args = (sp, coeffs[:B], norms, t[:B], p0[:B])
-        got = kexpm.expm_action_pair(*args, jsfs=jsfs, catmask=cm[:B])
-        want = kexpm.expm_action_pair_plain(*args, jsfs=jsfs, catmask=cm[:B])
-        for g, w in zip(got, want):
-            assert _same(g, w), B
-        m, over = kexpm.substep_counts(coeffs[:B], norms, t[:B])
-        zero = (t[:B] == 0) & ~over & p0[:B].isfinite().all(-1)
-        assert torch.equal(got[0][zero], p0[:B][zero]) and not got[1][zero].any()
-        assert got[1][NAN_P0].isnan().any() and got[2][NAN_P0].isnan().all()
-
-
-def test_kernel_takes_strided_lanes_and_shared_t_on_card(cuda):
-    """The spectrum's operands: one interval of a (B, s, C) rate table, one
-    interval length for every lane, a shared category mask."""
-    sp, coeffs, norms, t, p0, jsfs, cm = _inputs(INSTANCES[0], 300, torch.float64, cuda)
-    table = torch.stack([coeffs * 0.5, coeffs, coeffs * 2.0], dim=1)  # (B, 3, C)
-    got = kexpm.expm_action_pair(sp, table[:, 1], norms, t[1:2], p0, jsfs=jsfs,
-                                 catmask=cm[0])
-    want = kexpm.expm_action_pair(sp, coeffs.contiguous(), norms,
-                                  t[1:2].expand(300).contiguous(), p0, jsfs=jsfs,
-                                  catmask=cm[0].expand(300, -1).contiguous())
-    for a, b in zip(got, want):
-        assert _same(a, b)
-
-
-def test_kernel_rejects_what_it_does_not_take(cuda):
-    sp, coeffs, norms, t, p0, jsfs, cm = _inputs(INSTANCES[0], 8, torch.float64, cuda)
-    with pytest.raises(TypeError):
-        kea.expm_action(sp, coeffs, norms, t, p0.float())
-    f32 = _inputs(INSTANCES[0], 8, torch.float32, cuda)
-    with pytest.raises(TypeError):  # built in float64 only
-        kexpm.expm_action_pair(*f32[:5])
-    with pytest.raises(ValueError):
-        kea.expm_action(sp, coeffs[:, :3], norms, t, p0)
-    with pytest.raises(ValueError):
-        kea.expm_action(sp, coeffs, norms, t, p0, catmask=cm)
-    with pytest.raises(ValueError):
-        kea.expm_action(sp, coeffs, norms, t, p0, degree=40)

@@ -32,8 +32,7 @@ CHILD = textwrap.dedent("""
 
     cf.BUILD_DIR = Path(sys.argv[1])
     report = cf.build(force=True)
-    assert sorted(report) == sorted(cf._lib_path(d, c).name for d in cf._DTYPES
-                                    for c in (True, False)), report
+    assert sorted(report) == sorted(cf._lib_path(c).name for c in (True, False)), report
     assert all(ok for _, _, ok in report.values()), report
 """)
 
@@ -57,11 +56,11 @@ def test_concurrent_builds_write_temporary_files_of_their_own(tmp_path):
         pids.append(p.pid)
 
     outs = log.read_text().split()
-    assert len(outs) == 8 and len(set(outs)) == 8  # 4 libraries x 2 processes, no name shared
+    assert len(outs) == 4 and len(set(outs)) == 4  # 2 libraries x 2 processes, no name shared
     for pid in pids:
         mine = [o for o in outs if o.endswith(f".{pid}.tmp")]
-        assert len(mine) == 4, outs
+        assert len(mine) == 2, outs
     libs = sorted(f.name for f in build.iterdir())
-    assert len(libs) == 4 and all(n.endswith(".so") for n in libs), libs  # no .tmp left
+    assert len(libs) == 2 and all(n.endswith(".so") for n in libs), libs  # no .tmp left
     for f in build.iterdir():
         assert f.read_text().startswith("library ")

@@ -266,8 +266,8 @@ def test_kernel_wrapper_refuses_float32_and_cpu_operands():
     """The kernel is built in float64 only and has no CPU form: float32
     operands raise TypeError, float64 CPU operands ValueError, and neither
     counts a launch; its one build job is csrc/post_fit.cu in float64."""
-    assert [(j[1].name, j[2]) for j in kpf.build_jobs(force=True)] == [("post_fit.cu",
-                                                                         torch.float64)]
+    assert [(j[0].name, j[1].name) for j in kpf.build_jobs(force=True)] == [
+        ("post_fit_f64.so", "post_fit.cu")]
     before = kpf.post_fit.launches
     nc, lh, T = post_inputs(5, 8, 1, dtype=torch.float32)
     with pytest.raises(TypeError):

@@ -274,7 +274,7 @@ def test_a_library_is_stale_when_its_shared_header_changes(tmp_path):
     os.utime(src, (100, 100))
     os.utime(hdr, (100, 100))
     os.utime(out, (200, 200))
-    job = (out, src, F64, False, ())
+    job = (out, src, ())
     assert stale([job]) == []
     os.utime(hdr, (300, 300))
     assert stale([job]) == [job]

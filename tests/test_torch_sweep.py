@@ -137,17 +137,17 @@ def test_expm_action_pair_takes_per_lane_t():
     """Per-lane interval lengths give each lane its scalar-t result bitwise,
     and a zero-length lane returns its state and a zero occupancy exactly."""
     from misti_tpu_torch.engine.likelihood import SpectrumBasis
-    from misti_tpu_torch.kernels.expm import expm_action_pair
+    from misti_tpu_torch.kernels.expm import expm_action_pair_plain
 
     basis = SpectrumBasis(torch.device("cpu"), torch.float64)
     rng = np.random.default_rng(14)
     coeffs = torch.tensor(rng.uniform(0.1, 3.0, (4, 4)))
     p0 = torch.tensor(rng.dirichlet(np.ones(44), 4))
     t = torch.tensor([0.3, 0.0, 1.7, 0.05], dtype=torch.float64)
-    p1, n1 = expm_action_pair(basis.sp2, coeffs, basis.norms2, t, p0)
+    p1, n1 = expm_action_pair_plain(basis.sp2, coeffs, basis.norms2, t, p0)
     for i in range(4):
-        q1, m1 = expm_action_pair(basis.sp2, coeffs[i:i + 1], basis.norms2, float(t[i]),
-                                  p0[i:i + 1])
+        q1, m1 = expm_action_pair_plain(basis.sp2, coeffs[i:i + 1], basis.norms2, float(t[i]),
+                                        p0[i:i + 1])
         assert torch.equal(p1[i], q1[0]) and torch.equal(n1[i], m1[0])
     assert torch.equal(p1[1], p0[1]) and not n1[1].any()
 

@@ -94,7 +94,7 @@ STAGES = {
     "post_split_fit": [(sweep_fused, "post_split_fit", promoted)],
     "smooth_rates": [(sweep_fused, "smooth_rates", promoted)],
     "last_rate": [(sweep_fused, "last_rate", promoted)],
-    "series": [(likelihood, "expm_action_pair", promoted)],
+    "series": [(likelihood, "expm_action_pair_plain", promoted)],
     # the interval terms summed in float64, the spectrum cast down once
     "interval_sum": [(likelihood, "_sum_in_order", lambda f: promoted(f, down=False)),
                      (sweep_fused, "jafs_spectrum", lambda f: lambda *a, **k: f(*a, **k).float())],
