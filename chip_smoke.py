@@ -583,6 +583,55 @@ def off_main_path(name, rm):
     require(moved == 0, f"{name}: row_matmul launched {moved} times on the main path")
 
 
+def reset_graph_counts():
+    """Zero the counts of the likelihood's CUDA graph captures and replays
+    (`engine/likelihood.py` `BatchGraphs`), as the launch counters are zeroed."""
+    from misti_tpu_torch.engine.likelihood import BatchGraphs
+
+    BatchGraphs.captures = BatchGraphs.replays = 0
+
+
+def launched_calls(calls):
+    """Of ``calls`` objective calls since `reset_graph_counts`, those through
+    which the hand kernels' wrappers launched: the eager calls and the
+    capturing ones (a replay runs the graph, and no wrapper)."""
+    from misti_tpu_torch.engine.likelihood import BatchGraphs
+
+    return calls - BatchGraphs.replays + BatchGraphs.captures
+
+
+def require_fit_replays(name, nit):
+    """A single fit's graph use since `reset_graph_counts`: of its ``nit``
+    objective calls the first (n + 1 points) and the first of n + 5 points
+    eager, the second of n + 5 captured, and each call from it on a replay."""
+    from misti_tpu_torch.engine.likelihood import BatchGraphs
+
+    got = (BatchGraphs.replays, BatchGraphs.captures)
+    want = (max(nit - 2, 0), int(nit >= 3))
+    require(got == want, f"{name}: (replays, captures) {got} for {nit} objective calls, "
+                         f"expected {want}")
+
+
+def require_replays_eager(torch, name, lik, points):
+    """The batch entry points' replays at ``points``' width bitwise their
+    eager calls, with -inf lanes (a negated lane, a rate the correction
+    fails at) among the points: a width's third call replays."""
+    pts = points.clone()
+    pts[0] = -pts[0]
+    pts[1, 0] = 1e6
+    for _ in range(3):
+        flags = lik.llh_flags_batch(pts)
+        llh = lik.llh_batch(pts)
+    B = pts.shape[0]
+    require(("flags", B) in lik.graphs.graphs and ("llh", B) in lik.graphs.graphs,
+            f"{name}: no graph at width {B}")
+    require(not bool(torch.isfinite(llh).all()), f"{name}: no -inf lane among the points")
+    want_llh, want_flags = lik.graphs.eager("llh", pts)[0], lik.graphs.eager("flags", pts)
+    require(torch.equal(llh, want_llh) and torch.equal(flags[0], want_flags[0])
+            and torch.equal(flags[1], want_flags[1]),
+            f"{name}: a replay at width {B} is not bitwise the eager call")
+
+
 def row_matmul_record(rm, torch, name, args):
     """``row_matmul`` (float64) on one instance of a path (off the main
     path: the per-interval spectrum replayed on the path's inputs): held
@@ -945,13 +994,15 @@ def phase_main_path(cf, rm, torch, dev, bench):
         spec = bench.bench_spec(mode)
         lik = build_likelihood(spec, device=dev, dtype=torch.float32)
         params = bench.bench_params(batch, dev, lik.dtype)
-        out = lik.llh_batch(params)  # warm-up
+        out = lik.llh_batch(params)  # warm-up: the width's eager call
+        out = lik.llh_batch(params)  # and its capture: the calls below replay
         torch.cuda.synchronize()
         reps = 3
         cf.correction_sweep.launches = 0
         rm.row_matmul.launches = 0
         ksp.spectrum_kernel.launches = 0
         pf.post_fit.launches = 0
+        reset_graph_counts()
         t0 = time.perf_counter()
         for _ in range(reps):
             out = lik.llh_batch(params)
@@ -961,14 +1012,17 @@ def phase_main_path(cf, rm, torch, dev, bench):
         off_main_path(name, rm)
         sp_launches = ksp.spectrum_kernel.launches
         pf_launches = pf.post_fit.launches
-        require(sp_launches == reps, f"{name}: the spectrum kernel launched {sp_launches} times "
-                                     f"in {reps} batches")
-        require(pf_launches == reps, f"{name}: post_fit launched {pf_launches} times in {reps} "
-                                     f"batches")
+        eager = launched_calls(reps)
+        require(eager == 0, f"{name}: {eager} of {reps} calls not replays")
+        require(sp_launches == eager, f"{name}: the spectrum kernel launched {sp_launches} times "
+                                      f"in {reps} replayed batches")
+        require(pf_launches == eager, f"{name}: post_fit launched {pf_launches} times in {reps} "
+                                      f"replayed batches")
+        require_replays_eager(torch, name, lik, params)
         if mode in ("", "ect"):
             pf_records.append(post_fit_record(
                 pf, torch, f"post_fit_{'cpfit' if spec.cpfit else 'ect'}_bench",
-                capture_post_fit(lambda: lik.llh_batch(params)), pf_launches, reps))
+                capture_post_fit(lambda: lik.graphs.eager("llh", params)), pf_launches, eager))
         if spec.cpfit and spec.correct:
             rm_case = (lik, params, sp_launches)
         evals = batch * reps / dt
@@ -989,13 +1043,14 @@ def phase_main_path(cf, rm, torch, dev, bench):
         spec_ms = cuda_ms(lambda: lik.spectrum(lc, mi, pu), 3)
         corr_ms = cuda_ms(lambda: lik.correct(mi, pu), 3)
         line = (f"main path {name}: {evals:.1f} evals/s (batch {batch}, {reps} reps, "
-                f"{dt / reps * 1e3:.2f} ms/llh_batch), the float32 run bitwise the float64 one, "
+                f"{dt / reps * 1e3:.2f} ms/llh_batch, each a graph replay bitwise the eager "
+                f"call), the float32 run bitwise the float64 one, "
                 f"finite {int(fin32.sum())}/{batch}, argmax {am32}, correction {corr_ms:.3f} ms, "
                 f"spectrum {spec_ms:.3f} ms, sweep launches {launches}, spectrum launches "
-                f"{sp_launches} (1 per llh_batch), post_fit launches {pf_launches} (1 per "
-                f"llh_batch)")
+                f"{sp_launches}, post_fit launches {pf_launches} (0 in a replay)")
         if spec.correct:
-            require(launches == reps, f"{name}: sweep kernel launched {launches} times in {reps} batches")
+            require(launches == eager,
+                    f"{name}: sweep kernel launched {launches} times in {reps} replayed batches")
             s = spec.splitT
             inp = cf.sweep_inputs(mi[:, :s], pu[:, :s], *lik.sweep_tables)
             opts = lik.sweep_opts
@@ -1023,7 +1078,8 @@ def phase_main_path(cf, rm, torch, dev, bench):
                      f"work {json.dumps(work)}")
         log(line)
     lik, params, sp_launches = rm_case
-    call = lambda: lik.llh_batch(params)  # noqa: E731
+    # the eager call: a replay of the batch's graph runs none of the wrappers
+    call = lambda: lik.graphs.eager("llh", params)  # noqa: E731
     args = capture_row_matmul(call)
     return [records[k] for k in sorted(records)] + [
         spectrum_record(torch, "spectrum_bench", capture_spectrum(call), sp_launches),
@@ -1559,17 +1615,39 @@ def _single_fit_lik(torch, dev, argv):
     return build_likelihood(spec, device=dev, dtype=torch.float64)
 
 
-def _objective_launches(torch, lik, points) -> int:
-    """CUDA kernel launches of one objective call (torch.profiler)."""
+def _objective_launches(torch, name, lik, points) -> tuple:
+    """The CUDA operations of one objective call at ``points``' width
+    (torch.profiler): the eager call's, and a replayed call's, which has to
+    be one graph launch whose kernels have the eager call's names (over 3
+    profiled calls each, as the profiler may miss a kernel in one)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    lik.llh_flags_batch(points)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        lik.llh_flags_batch(points)
+    def seen(call):
+        call()
         torch.cuda.synchronize()
-    return sum(e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                call()
+            torch.cuda.synchronize()
+        ev = prof.key_averages()
+        ops = {e.key: e.count for e in ev if e.device_type == DeviceType.CUDA}
+        kernels = {k for k in ops if not k.startswith(("Memcpy", "Memset"))}
+        return sum(ops.values()) / 3, kernels, sum(e.count for e in ev if e.key == "cudaGraphLaunch")
+
+    eager, eager_kernels, _ = seen(lambda: lik.graphs.eager("flags", points))
+    key = ("flags", points.shape[0])
+    for _ in range(2):  # the width's eager call and its capture, where not made yet
+        if key not in lik.graphs.graphs:
+            lik.llh_flags_batch(points)
+    replay, replay_kernels, graph_launches = seen(lambda: lik.llh_flags_batch(points))
+    require(key in lik.graphs.graphs and graph_launches == 3,
+            f"{name}: {graph_launches} graph launches in 3 replayed calls")
+    require(replay_kernels == eager_kernels,
+            f"{name}: a replay's kernels are not the eager call's: only replayed "
+            f"{sorted(replay_kernels - eager_kernels)}, only eager "
+            f"{sorted(eager_kernels - replay_kernels)}")
+    return eager, replay
 
 
 def phase_single_fit(cf, rm, torch, dev):
@@ -1597,13 +1675,16 @@ def phase_single_fit(cf, rm, torch, dev):
             cf.correction_sweep.launches = 0
             pf.post_fit.launches = 0
             knm.nm_step.launches = 0
+            reset_graph_counts()
             rc, lines, wall = _run_cli(misti.main, synth + args + ["-o", out_mi])
             launches = cf.correction_sweep.launches
             require(rc == 0, f"{name}: rc {rc}")
             fit = parse_fit_stdout(lines)
-            require(launches == fit["nit"] + 1 == pf.post_fit.launches,
+            require_fit_replays(name, fit["nit"])
+            eager = launched_calls(fit["nit"] + 1)
+            require(launches == eager == pf.post_fit.launches,
                     f"{name}: {launches} kernel launches and {pf.post_fit.launches} post_fit "
-                    f"launches for {fit['nit'] + 1} objective calls")
+                    f"launches for {fit['nit'] + 1} objective calls, {eager} not replays")
             require(knm.nm_step.launches == fit["nit"],
                     f"{name}: {knm.nm_step.launches} nm_step launches for {fit['nit']} "
                     f"iterations (scipy's nit: a start launch, then one an iteration)")
@@ -1620,14 +1701,16 @@ def phase_single_fit(cf, rm, torch, dev):
         cf.correction_sweep.launches = 0
         pf.post_fit.launches = 0
         knm.nm_step.launches = 0
+        reset_graph_counts()
         rc, lines, wall = _run_cli(misti.main, synth + DEBUG_ARGS)
         launches = cf.correction_sweep.launches
+        eager = launched_calls(3)
         require(rc == 0, f"debug golden: rc {rc}")
         its = [int(ln.split()[-1]) for ln in lines if ln.startswith("         Iterations:")]
         require(knm.nm_step.launches == sum(its),
                 f"debug golden: {knm.nm_step.launches} nm_step launches for {its} iterations")
-        require(pf.post_fit.launches == 3, f"debug golden: {pf.post_fit.launches} post_fit "
-                                           f"launches, expected 3")
+        require(pf.post_fit.launches == eager, f"debug golden: {pf.post_fit.launches} post_fit "
+                                               f"launches, expected {eager} (3 calls)")
 
         def grab(ls, prefix):
             hits = [ln for ln in ls if ln.startswith(prefix)]
@@ -1643,7 +1726,8 @@ def phase_single_fit(cf, rm, torch, dev):
                        "Lambda correction called", "Lambda correction failed"):
             require(grab(lines, prefix) == grab(ref_lines, prefix),
                     f"debug golden: {prefix!r} line differs")
-        require(launches == 3, f"debug golden: {launches} kernel launches, expected 3")
+        require(launches == eager,
+                f"debug golden: {launches} kernel launches, expected {eager} (3 calls)")
         log(f"single fit debug golden (float64, card): estimate line and Report() lines as "
             f"upstream's, llh rel diff {d_llh:.3e}, {launches} kernel launches, {wall:.2f} s")
 
@@ -1659,6 +1743,7 @@ def phase_single_fit(cf, rm, torch, dev):
             ksp.spectrum_kernel.launches = 0
             pf.post_fit.launches = 0
             knm.nm_step.launches = 0
+            reset_graph_counts()
             torch.cuda.synchronize()
             rc, lines, wall = _run_cli(misti.main, argv + ["-o", out_mi])
             nm_launches = knm.nm_step.launches
@@ -1669,11 +1754,14 @@ def phase_single_fit(cf, rm, torch, dev):
             require(rc == 0, f"north-star {name}: rc {rc}")
             fit = parse_fit_stdout(lines)
             calls = fit["nit"] + 1  # the simplex's calls and the -bs 0 re-evaluation
-            require(launches == calls,
-                    f"north-star {name}: {launches} kernel launches for {calls} objective calls")
-            require(sp_launches == calls,
+            require_fit_replays(f"north-star {name}", fit["nit"])
+            eager = launched_calls(calls)
+            require(launches == eager,
+                    f"north-star {name}: {launches} kernel launches for {calls} objective calls, "
+                    f"{eager} not replays")
+            require(sp_launches == eager,
                     f"north-star {name}: {sp_launches} spectrum launches for {calls} objective "
-                    f"calls")
+                    f"calls, {eager} not replays")
             require(nm_launches == fit["nit"],
                     f"north-star {name}: {nm_launches} nm_step launches for {fit['nit']} "
                     f"iterations (scipy's nit: a start launch, then one an iteration)")
@@ -1699,7 +1787,8 @@ def phase_single_fit(cf, rm, torch, dev):
             # an iteration's n + 5 trial points around the optimum
             points = x * (1.0 + 0.01 * torch.arange(n + 5, dtype=torch.float64,
                                                     device=dev))[:, None]
-            per_call = _objective_launches(torch, lik, points)
+            per_call = _objective_launches(torch, f"north-star {name}", lik, points)
+            require_replays_eager(torch, f"north-star {name}", lik, points)
             s = lik.spec.splitT
             mi, pu = lik.map_params(points)
             inp = cf.sweep_inputs(mi[:, :s], pu[:, :s], *lik.sweep_tables)
@@ -1721,9 +1810,9 @@ def phase_single_fit(cf, rm, torch, dev):
             rec["share_of_bound"] = rec["bound_ms"] / k_ms
             timed_record(rec, lambda: cf.correction_sweep(inp, **opts), 20)
             records.append(rec)
-            call = lambda: lik.llh_flags_batch(points)  # noqa: E731
+            call = lambda: lik.graphs.eager("flags", points)  # noqa: E731
             records.append(post_fit_record(pf, torch, f"post_fit_{name}_single_fit_f64",
-                                           capture_post_fit(call), pf_launches, calls))
+                                           capture_post_fit(call), pf_launches, eager))
             records.append(spectrum_record(torch, f"spectrum_{name}_single_fit_f64",
                                            capture_spectrum(call), sp_launches))
             if name == "cpfit":
@@ -1735,9 +1824,10 @@ def phase_single_fit(cf, rm, torch, dev):
                 f"{nm_launches} nm_step launches, every printed number as the plain loop's")
             log(f"north-star {name} timing: {wall:.3f} s wall, {calls} objective calls, "
                 f"{wall / calls * 1e3:.1f} ms per objective call, {fit['calls'] / wall:.1f} "
-                f"evals/s, {per_call} kernel launches per objective call ({n + 5} lanes), of "
-                f"them spectrum {sp_launches / calls:.2f} and post_fit {pf_launches / calls:.2f} "
-                f"(row_matmul 0); "
+                f"evals/s, CUDA operations per objective call ({n + 5} lanes) eager and replayed "
+                f"{per_call} (the replay's in one graph launch), {calls - eager} of {calls} calls "
+                f"replays; wrapper launches a call: spectrum {sp_launches / calls:.2f}, "
+                f"post_fit {pf_launches / calls:.2f} (row_matmul 0); "
                 f"correction kernel at s = {s}, B = {B}, float64, shared tables: {k_ms:.4f} ms "
                 f"(device {rec['device_ms']:.4f} ms, host {rec['host_us']:.1f} us), "
                 f"plain {p_ms:.1f} ms, bound {rec['bound_ms']:.5f} ms ({rec['bound_by']}; "

@@ -19,11 +19,18 @@ exact no-ops through all of them.
 Failure semantics follow the reference: negative parameters or a failed
 lambda correction (any corrected rate <= 0 pre-split) yield -inf
 (MigrationInference.py:566-578) via a validity mask instead of early returns.
+
+On the card the batch entry points (`llh_batch`, `llh_flags_batch`) replay a
+CUDA graph of the whole call from a width's second call on (`BatchGraphs`):
+one graph launch in place of the stages' ~50 torch launches and three hand
+kernels, the same kernels in the same order.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+from types import SimpleNamespace
 from typing import Callable
 
 import numpy as np
@@ -41,12 +48,133 @@ from ..spans import count, span, spanned
 from .spec import ModelSpec
 
 _POST_OUTERS = 6  # Jacobi rounds of the ECT post-split fit
+_MAX_GRAPHS = 4  # graphs a likelihood keeps: a fit replays one width, basin-hopping two
+# device index -> (side stream, memory pool, the graph that holds the pool) of
+# every capture on it: one stream, so that the state torch keeps per stream
+# (cuBLAS's workspace) is made once; one pool, whose blocks a dropped
+# likelihood's graphs leave to the next capture, so that a capture allocates
+# nothing new once one has run.  Torch drops a shared pool once its last graph
+# goes (in its device allocator and in its pinned host allocator alike) and
+# then refuses to capture into it again, so a graph of one fill, kept for the
+# process, holds it
+_CAPTURE: dict = {}
 
 
 def hand_launches() -> int:
     """The launches of the likelihood's hand kernels so far, in this process."""
     return correction_sweep.launches + post_fit.launches + row_matmul.launches \
         + spectrum_kernel.launches
+
+
+def _llh_call(body, params, **attrs):
+    """``body(params)`` in an `llh` span that carries the hand kernels'
+    launches made in it (none in a replay)."""
+    with span("llh", lanes=params.shape[0], **attrs) as sp:
+        launched = hand_launches() if sp else 0
+        out = body(params)
+        if sp:
+            sp.set(hand_launches=hand_launches() - launched)
+    return out
+
+
+def cuda_capture(fn, static_in):
+    """``fn(static_in)`` captured into a CUDA graph: an object with
+    ``replay()``, which runs its kernels on the current stream, the outputs
+    it writes (``outputs``) and ``static_in``.
+
+    The capture runs on its device's side stream, after the current stream's
+    work so far, into the device's pool, without the synchronise and cache
+    flush of ``torch.cuda.graph``'s entry: those would empty the caching
+    allocator that every later allocation of a fit needs.  Graphs share the
+    pool, so a replay's intermediates may lie where another graph's outputs
+    lie: every replay runs on the current stream, and `BatchGraphs` copies
+    its outputs there before the next replay can start."""
+    with torch.cuda.device(static_in.device):
+        idx = torch.cuda.current_device()
+        if idx not in _CAPTURE:
+            side, pool, hold = torch.cuda.Stream(), torch.cuda.graph_pool_handle(), \
+                torch.cuda.CUDAGraph()
+            with torch.cuda.stream(side):
+                hold.capture_begin(pool=pool, capture_error_mode="thread_local")
+                torch.zeros(1, device=static_in.device)
+                hold.capture_end()
+            _CAPTURE[idx] = (side, pool, hold)
+        side, pool, _ = _CAPTURE[idx]
+        side.wait_stream(torch.cuda.current_stream())
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(side):
+            g.capture_begin(pool=pool, capture_error_mode="thread_local")
+            try:
+                outputs = fn(static_in)
+            except BaseException:
+                with contextlib.suppress(RuntimeError):
+                    g.capture_end()
+                raise
+            g.capture_end()
+    return SimpleNamespace(replay=g.replay, outputs=outputs, static_in=static_in)
+
+
+class BatchGraphs:
+    """The batch entry points of one likelihood (`llh_batch`,
+    `llh_flags_batch`) as CUDA graph replays, a graph per entry point and
+    batch width.
+
+    A width's first call runs eagerly: it also makes what a call builds
+    once (the spectrum kernel's constant arguments and pulse sites, the
+    libraries' state for that shape).  Its second call captures the eager
+    call on a static input (``capture``: `cuda_capture`; None on the CPU,
+    which never captures) and replays it; every later call copies its
+    parameters into the static input and replays.  A caller whose widths
+    never repeat never captures, and at most `_MAX_GRAPHS` graphs are kept.
+    A call served by a replay returns copies of the graph's outputs, which
+    the next replay overwrites.  A replay runs none of the stages' Python
+    and launches no hand kernel through its wrapper; it counts the work
+    counters the captured call counted (``per_lane``: each counter's count
+    per lane of a call).  ``captures`` and ``replays`` count, in this
+    process, the calls that captured and the calls a replay served (the
+    capturing ones too).
+    """
+
+    captures = 0
+    replays = 0
+
+    def __init__(self, bodies: dict, per_lane: dict, as_params: Callable, capture=None):
+        self.bodies = bodies  # entry -> fn(params (B, n_par)) -> tuple of tensors
+        self.per_lane = per_lane
+        self.as_params = as_params  # the caller's parameters as the bodies take them
+        self.capture = capture
+        self.seen = set()  # (entry, width) called once
+        self.graphs = {}  # (entry, width) -> graph
+
+    def eager(self, entry: str, params):
+        """The entry point's call, eagerly."""
+        return _llh_call(self.bodies[entry], self.as_params(params))
+
+    def __call__(self, entry: str, params):
+        params = self.as_params(params)
+        key = (entry, params.shape[0])
+        if key not in self.graphs and (self.capture is None or key not in self.seen
+                                       or len(self.graphs) >= _MAX_GRAPHS):
+            self.seen.add(key)
+            return _llh_call(self.bodies[entry], params)
+        return _llh_call(lambda p: self._replay(key, p), params, graph=True)
+
+    def _replay(self, key, params):
+        g = self.graphs.get(key)
+        if g is None:  # the width's second call: capture it, then replay it
+            with span("llh.capture"):
+                g = self.graphs[key] = self.capture(self.bodies[key[0]], params.clone())
+            BatchGraphs.captures += 1
+            count("llh.graph_captures", 1)
+        else:
+            g.static_in.copy_(params)
+            for name, per in self.per_lane.items():
+                if per:
+                    count(name, params.shape[0] * per)
+        g.replay()
+        BatchGraphs.replays += 1
+        count("llh.graph_replays", 1)
+        return tuple(t.clone() for t in g.outputs)
 
 
 def _pulse_update_3state(p, rate, pop: int):
@@ -339,6 +467,8 @@ class Likelihood:
     spectrum: Callable  # (lc, mi, pu) -> unnormalised jafs (B, 7)
     sweep_tables: tuple = ()  # (lh (s, 2), times (s,)) of the fused sweep
     sweep_opts: dict = dataclasses.field(default_factory=dict)  # its options
+    # the batch entry points' graphs; ``graphs.eager(entry, params)`` is their eager call
+    graphs: BatchGraphs | None = dataclasses.field(default=None, repr=False, compare=False)
 
 
 @spanned("likelihood.build")
@@ -395,6 +525,9 @@ def build_likelihood(spec: ModelSpec, *, device=None, dtype=None) -> Likelihood:
     catmask_t = tens(catmask)
     smooth_w = tens(spec.smooth_w) if (spec.smooth and s > 0) else None
     basis = SpectrumBasis(dev, ct)
+    # the correction's start state, made here: a copy from the host inside a
+    # call would keep the call from being captured
+    p0 = torch.tensor([[1.0, 0.0, 0.0], [0.0, 1.0, 0.0]], dtype=ct, device=dev)
 
     def map_params(params):
         """MapParameters (MigrationInference.py:291-298): overwrite the
@@ -413,7 +546,6 @@ def build_likelihood(spec: ModelSpec, *, device=None, dtype=None) -> Likelihood:
     def correct(mi, pu):
         with span("llh.correct") as sp:
             B = mi.shape[0]
-            p0 = torch.tensor([[1.0, 0.0, 0.0], [0.0, 1.0, 0.0]], dtype=ct, device=dev)
             p0b = p0.expand(B, 2, 3)
             lh_pre = lh_t[:s].expand(B, s, 2)
             if not spec.correct or s == 0:
@@ -453,29 +585,28 @@ def build_likelihood(spec: ModelSpec, *, device=None, dtype=None) -> Likelihood:
 
     # -- full likelihood ------------------------------------------------------
 
-    def _core(params, data, llh_const):
-        with span("llh", lanes=params.shape[0]) as sp:
-            launched = hand_launches() if sp else 0
-            with span("llh.lanes"):
-                nonneg = (params >= 0).all(-1)
-                mi, pu = map_params(params)
-            lc, pr, valid_corr = correct(mi, pu)
-            with span("llh.spectrum", pulse_sites=n_sites):
-                if n_sites:
-                    count("spectrum.pulse_ops", params.shape[0] * n_sites)
-                jafs_raw = spectrum(lc, mi, pu)
-            with span("llh.multinomial"):
-                llh, jafs, pos = multinomial_llh(jafs_raw, data, llh_const, spec.unfolded)
-                valid = nonneg & valid_corr & pos
-                llh = torch.where(valid, llh, torch.full_like(llh, -float("inf")))
-            if sp:
-                sp.set(hand_launches=hand_launches() - launched)
+    def _stages(params, data, llh_const):
+        with span("llh.lanes"):
+            nonneg = (params >= 0).all(-1)
+            mi, pu = map_params(params)
+        lc, pr, valid_corr = correct(mi, pu)
+        with span("llh.spectrum", pulse_sites=n_sites):
+            if n_sites:
+                count("spectrum.pulse_ops", params.shape[0] * n_sites)
+            jafs_raw = spectrum(lc, mi, pu)
+        with span("llh.multinomial"):
+            llh, jafs, pos = multinomial_llh(jafs_raw, data, llh_const, spec.unfolded)
+            valid = nonneg & valid_corr & pos
+            llh = torch.where(valid, llh, torch.full_like(llh, -float("inf")))
         # Report() counters (MigrationInference.py:306,336,347,567): "called"
         # once per eval past the negative-rate guard, "failed" when the sweep
         # ran and left a rate <= 0
         return llh, {"jafs": jafs, "lc": lc, "pr": pr, "valid": valid,
                      "mi": mi, "pu": pu, "corr_called": nonneg,
                      "corr_failed": nonneg & ~valid_corr}
+
+    def _core(params, data, llh_const):
+        return _llh_call(lambda p: _stages(p, data, llh_const), params)
 
     def as_params(params):
         """(B, n_par) tensor on the device, rounded to the run's dtype and
@@ -494,8 +625,21 @@ def build_likelihood(spec: ModelSpec, *, device=None, dtype=None) -> Likelihood:
     def llh_only(params):
         return llh_aux(params)[0]
 
+    def batch_llh(params):
+        return (_stages(params, data_t, spec.llh_const)[0],)
+
+    def batch_flags(params):
+        llh, aux = _stages(params, data_t, spec.llh_const)
+        return llh, torch.stack([aux["corr_called"], aux["corr_failed"]], dim=-1).to(dt)
+
+    # what a call counts per lane, as `correct` and the spectrum stage count it
+    per_lane = {"correction.pulse_rows": s if (spec.correct and s and has_pulse) else 0,
+                "spectrum.pulse_ops": n_sites}
+    graphs = BatchGraphs({"llh": batch_llh, "flags": batch_flags}, per_lane, as_params,
+                         cuda_capture if dev.type == "cuda" else None)
+
     def llh_batch(params):
-        return _core(as_params(params), data_t, spec.llh_const)[0]
+        return graphs("llh", params)[0]
 
     def llh_data(params, data7):
         """Likelihood with the 7-category data spectrum as an argument (for
@@ -511,13 +655,11 @@ def build_likelihood(spec: ModelSpec, *, device=None, dtype=None) -> Likelihood:
     def llh_flags_batch(params):
         """(llh (B,), Report() counters (B, 2): corr_called, corr_failed) for
         the optimiser's per-evaluation accumulation."""
-        llh, aux = _core(as_params(params), data_t, spec.llh_const)
-        flags = torch.stack([aux["corr_called"], aux["corr_failed"]], dim=-1)
-        return llh, flags.to(dt)
+        return graphs("flags", params)
 
     def llh_flags(params):
-        """`llh_flags_batch` of one parameter vector: (llh, counters (2,))."""
-        llh, flags = llh_flags_batch(params)
+        """`llh_flags_batch` of one parameter vector, eagerly: (llh, counters (2,))."""
+        llh, flags = graphs.eager("flags", params)
         return llh[0], flags[0]
 
     return Likelihood(
@@ -526,5 +668,5 @@ def build_likelihood(spec: ModelSpec, *, device=None, dtype=None) -> Likelihood:
         llh_flags_batch=llh_flags_batch,
         map_params=lambda params: map_params(as_params(params)),
         correct=correct, spectrum=spectrum, sweep_tables=(lh_t[:s], pre_T_t),
-        sweep_opts=sweep_opts,
+        sweep_opts=sweep_opts, graphs=graphs,
     )
